@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's W8A8 serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA card
+
+Phases (each fatal on failure; exit code 0 only when all pass):
+
+1. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
+             per source, in parallel); print the build seconds and the
+             card's name and power limit.
+2. kernels — each kernel against its plain PyTorch version on the card,
+             at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
+             M = 2048 rows), bits 8 and 6, f32 and bf16 inputs; max error
+             and mismatches against the tolerance registry; kernel,
+             plain-version and library-call times (CUDA events) beside
+             the least time the card could take (bytes at 3.35 TB/s,
+             int8 operations at 1979 TOP/s, fp32 at 67 TFLOP/s).
+3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
+             range-calibrated (w8a8, G=10) on the card; the same requests
+             served fp and w8a8 through the kernels; prints the drift.
+4. serve   — DiT-XL/2 at full width (bf16, perturbed initialised weights)
+             through ``repro_torch.launch.serve``'s path: range
+             calibration, then 8 requests, microbatch 4, 20 steps, CFG
+             1.5. Asserts zero fallback ops, finite samples, and launch
+             counts equal to ops packed per kernel x forwards; holds one
+             full-width forward on the kernels against the plain versions.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
+INT8_OPS = 1979e12         # dense int8 tensor-core peak, ops/s
+FP32_OPS = 67e12           # fp32 outside the tensor cores, flop/s
+SOFTMAX_FP32_PER_SCORE = 10  # fp32 ops per score: scale, max, sub, exp,
+                             # sum, 2 divides, compare, round, rescale
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, int8_ops: float, fp32_ops: float = 0.0):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (int8_ops / INT8_OPS + fp32_ops / FP32_OPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at the serving shapes
+# ---------------------------------------------------------------------------
+LINEAR_CASES = [  # (op, M, K, N, fusion, kernel)
+    ("ada", 8, 1152, 6912, "", "int8_matmul_fq"),
+    ("qkv", 2048, 1152, 3456, "norm_mod", "int8_matmul_fq"),
+    ("proj", 2048, 1152, 1152, "gate_residual", "int8_matmul_fq"),
+    ("fc2", 2048, 4608, 1152, "gate_residual", "int8_matmul_mrq_fq"),
+]
+TIMED = {"int8_matmul_fq": "qkv", "int8_matmul_mrq_fq": "fc2"}
+
+
+def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed):
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import int8_fused as F8
+    from repro_torch.kernels.ref import TOLERANCES
+
+    dev = torch.device("cuda")
+    half = 2 ** (bits - 1)
+    B, G, g = 8, 10, 3
+    x = torch.randn(M, K, device=dev, generator=gen)
+    if kern == "int8_matmul_mrq_fq":       # post-GELU-like input
+        x = torch.nn.functional.gelu(x * 2, approximate="tanh")
+    x = x.to(dt)
+    wq = torch.randint(-(half - 1), half, (K, N), device=dev, generator=gen,
+                       dtype=torch.int8)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    scale_w = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
+    bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(M // B)
+    kw = {}
+    if fusion == "norm_mod":
+        kw = {"nm": (torch.randn(B, K, device=dev, generator=gen) * 0.1,
+                     torch.randn(B, K, device=dev, generator=gen) * 0.1),
+              "bv": bv}
+    if fusion == "gate_residual":
+        kw = {"gr": (torch.randn(B, N, device=dev, generator=gen),
+                     torch.randn(M, N, device=dev, generator=gen).to(dt)),
+              "bv": bv}
+    bias = torch.randn(N, device=dev, generator=gen) * 0.1
+    if kern == "int8_matmul_fq":
+        sx = rate * (8.0 / (2 * half - 1))
+        zx = torch.round(4.0 / sx)
+        corr = ((torch.round(zx).to(torch.int32) - half)
+                * wq.to(torch.int32).sum(0, dtype=torch.int32)[None])
+        args = (x, wq, sx, zx, sx * scale_w, corr, bias, g)
+        fn = F8.int8_matmul_fq
+    else:
+        s_neg = rate * (0.2 / half)
+        s_pos = rate * (6.0 / half)
+        args = (x, wq, s_neg, s_pos, s_neg * scale_w, s_pos * scale_w, bias, g)
+        fn = F8.int8_matmul_mrq_fq
+    run = lambda: fn(*args, bits=bits, out_dtype=dt, **kw)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    max_err, n_bad = float(err.max()), int((err > 0).sum())
+    key = {"": "B1_vs_plain", "norm_mod": "B1_norm_mod_vs_plain",
+           "gate_residual": "B1_vs_plain"}[fusion]
+    if kern == "int8_matmul_mrq_fq":
+        key = "B2_vs_plain"
+    tol = TOLERANCES[key][0]
+    log(f"kernel {kern} op={op} M={M} K={K} N={N} {fusion or 'plain'} "
+        f"{str(dt)[6:]} bits={bits}: max_abs_err={max_err} "
+        f"mismatches={n_bad}/{err.numel()} (registry {key}: {tol})")
+    if max_err > tol:
+        raise AssertionError(f"{kern} {op} bits={bits} {dt}: max error "
+                             f"{max_err} > {tol}")
+    row = {"max_abs_err": max_err}
+    if timed:
+        row["ms"] = time_ms(run, 50)
+        with kernels.plain_on_cuda():
+            row["plain_ms"] = time_ms(run, 5, warmup=1)
+        xq = torch.randint(-half, half, (M, K), device=dev, dtype=torch.int8)
+        row["library_ms"] = time_ms(lambda: torch._int_mm(xq, wq), 50)
+        esz = x.element_size()
+        nbytes = (M * K * esz + K * N + N * 4 * 2 + N * 4 + M * N * esz)
+        if fusion == "norm_mod":
+            nbytes += M * 8 + 2 * B * K * 4 + M * 4
+        if fusion == "gate_residual":
+            nbytes += B * N * 4 + M * N * esz + M * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2 * M * K * N * (2 if kern == "int8_matmul_mrq_fq" else 1))
+        log(f"  time {kern} op={op}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def flash_case(bits, dt, gen, timed):
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attn_mrq as FA
+    from repro_torch.kernels.ref import TOLERANCES, flash_flip_stats
+
+    dev = torch.device("cuda")
+    BH, S, D, G = 128, 256, 72, 10
+    half = 2 ** (bits - 1)
+    q = (torch.randn(BH, S, D, device=dev, generator=gen) * 1.5).to(dt)
+    k = (torch.randn(BH, S, D, device=dev, generator=gen) * 1.5).to(dt)
+    v = torch.randn(BH, S, D, device=dev, generator=gen).to(dt)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    s_q = rate * (6.0 / (half - 1))
+    s_k = s_q * 1.05
+    qk = s_q * s_k * torch.tensor(D ** -0.5, dtype=torch.float32)
+    s1 = torch.clamp(8.0 * (1.0 / S) / half * rate, 1.0 / (half * half * 8),
+                     1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    args = (q, k, v, s_q, s_k, qk, s1, s_v, s1 * s_v, s_v * (1.0 / half), 4, 6)
+    run = lambda: FA.flash_attn_mrq(*args, bits=bits, out_dtype=dt)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    rate, max_err = flash_flip_stats(out, ref)
+    step = float(s_v[6, 0]) * (half - 1) / half
+    rate_tol = TOLERANCES["B3_flipped_row_rate"][0]
+    atol = TOLERANCES["B3_atol_steps"][0] * step
+    if dt == torch.bfloat16:            # plus one bf16 ulp at the top
+        atol += float(ref.float().abs().max()) * 2 ** -8
+    log(f"kernel flash_attn_mrq BH={BH} S={S} hd={D} {str(dt)[6:]} "
+        f"bits={bits}: max_abs_err={max_err} flipped_rows={rate:.5f} "
+        f"(registry: rate <= {rate_tol}, max <= {atol:.4g})")
+    if rate > rate_tol or max_err > atol:
+        raise AssertionError(f"flash_attn_mrq bits={bits} {dt}: flipped "
+                             f"rows {rate}, max {max_err}")
+    row = {"max_abs_err": max_err}
+    if timed:
+        row["ms"] = time_ms(run, 50)
+        with kernels.plain_on_cuda():
+            row["plain_ms"] = time_ms(run, 3, warmup=1)
+        qb, kb, vb = (t.to(torch.bfloat16).reshape(8, 16, S, D)
+                      for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(lambda: sdpa(qb, kb, vb), 50)
+        esz = q.element_size()
+        nbytes = 4 * BH * S * D * esz + 7 * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 3 * 2 * BH * S * S * D,
+            SOFTMAX_FP32_PER_SCORE * BH * S * S)
+        log(f"  time flash_attn_mrq: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa(bf16) {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_kernels():
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for bits in (8, 6):
+            timed_pass = dt == torch.bfloat16 and bits == 8
+            for op, M, K, N, fusion, kern in LINEAR_CASES:
+                r = linear_case(op, M, K, N, fusion, kern, bits, dt, gen,
+                                timed_pass and TIMED[kern] == op)
+                rows.setdefault(kern, []).append(r)
+            rows.setdefault("flash_attn_mrq", []).append(
+                flash_case(bits, dt, gen, timed_pass))
+    merged = {}
+    for name, rs in rows.items():
+        m = next(r for r in rs if "ms" in r).copy()
+        m["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        merged[name] = m
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# phase 3: trained checkpoint, w8a8 vs fp drift
+# ---------------------------------------------------------------------------
+def phase_trained():
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
+    from repro_torch.models.dit import DiTCfg, params_from_numpy
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = DiTCfg(img_size=16, in_ch=4, patch=2, d_model=160, n_layers=6,
+                 n_heads=4, n_classes=8)
+    dif = DiffusionCfg(T=1000, tgq_groups=10)
+    with open(os.path.join(ROOT, "experiments", "dit_bench_450.pkl"),
+              "rb") as f:
+        params = params_from_numpy(pickle.load(f), device="cuda")
+    sched = make_schedule(dif)
+    art = quantize(params, cfg, dif, QuantRecipe(bits="w8a8"), sched=sched)
+    if art.fallback_ops():
+        raise AssertionError(f"fallback ops: {art.fallback_ops()}")
+    reqs = [GenRequest(request_id=i, label=i % 8, steps=50, seed=100 + i)
+            for i in range(8)]
+    out = {}
+    for name, ctx in (("fp", None), ("w8a8", art.context())):
+        eng = ServeEngine(params, cfg, dif, sched, ctx=ctx, microbatch=4,
+                          step_buckets=(50,), device="cuda")
+        before = dict(kernels.LAUNCHES)
+        res = eng.serve(reqs)
+        out[name] = np.stack([res[i].sample for i in range(8)])
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        log(f"trained {name}: launches {launched}")
+    fp, q = out["fp"], out["w8a8"]
+    if not (np.isfinite(fp).all() and np.isfinite(q).all()):
+        raise AssertionError("non-finite trained-checkpoint samples")
+    drift = float(np.abs(fp - q).mean() / np.abs(fp).mean())
+    log(f"trained checkpoint (d=160, 6 layers, 50 steps, 8 requests): "
+        f"W8A8 vs FP drift = {drift:.6f} (mean|fp-q| / mean|fp|)")
+    return drift
+
+
+# ---------------------------------------------------------------------------
+# phase 4: DiT-XL/2 at full width through the launcher's path
+# ---------------------------------------------------------------------------
+def phase_serve():
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.launch.serve import build
+    from repro_torch.models.dit import dit_apply
+
+    requests, microbatch, steps = 8, 4, 20
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cfg, params, art, engine, sq, info = build(
+        "dit-xl-2", False, "w8a8", 0, requests, microbatch, steps, 1.5,
+        device="cuda")
+    log(f"full width: range calibration {info['calib_s']:.2f} s; "
+        f"{art.summary()}")
+    if art.fallback_ops():
+        raise AssertionError(f"fallback ops: {art.fallback_ops()}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = sq.run(engine)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    samples = np.stack([results[r].sample for r in sorted(results)])
+    want_shape = (requests, cfg.img_size, cfg.img_size, cfg.in_ch)
+    if samples.shape != want_shape or not np.isfinite(samples).all():
+        raise AssertionError(f"bad samples {samples.shape}")
+    forwards = engine.stats["microbatches"] * steps
+    want = {k: n * forwards for k, n in art.packed_counts().items()}
+    log(f"full width: packed per forward {art.packed_counts()}, forwards "
+        f"{forwards}, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != packed x "
+                             f"forwards {want}")
+    log(f"full width: served {requests} requests x {steps} steps (cfg 1.5, "
+        f"microbatch {microbatch}) in {dt:.3f} s: "
+        f"{requests / dt:.4f} req/s, "
+        f"{dt / forwards * 1e3:.3f} ms/step (2B={2 * microbatch} forward); "
+        f"setup+calib {t1 - t0:.1f} s; sample mean {samples.mean():.5f} "
+        f"std {samples.std():.5f}")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(8, cfg.img_size, cfg.img_size, cfg.in_ch, device="cuda",
+                    generator=gen)
+    t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
+    y = torch.arange(8, device="cuda") % cfg.n_classes
+    ctx = art.context().with_tgroup(5)
+    with torch.no_grad():
+        out_k = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
+        with kernels.plain_on_cuda():
+            out_p = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
+    rel = float((out_k - out_p).norm() / out_p.norm())
+    tol = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
+    log(f"full width forward, kernels vs plain versions on the card: "
+        f"rel L2 {rel:.3e} (registry {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"forward rel error {rel} > {tol}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build as kbuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    secs = kbuild.build_all()
+    log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
+    for name, text in kbuild.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(f"card: {smi.stdout.strip()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    rows = phase_kernels()
+    drift = phase_trained()
+    launches = phase_serve()
+
+    sources = {"int8_matmul_fq": ("src/repro_torch/csrc/int8_fused.cu",
+                                  "src/repro/kernels/int8_fused.py:355"),
+               "int8_matmul_mrq_fq": ("src/repro_torch/csrc/int8_fused.cu",
+                                      "src/repro/kernels/int8_fused.py:483"),
+               "flash_attn_mrq": ("src/repro_torch/csrc/flash_attn_mrq.cu",
+                                  "src/repro/kernels/flash_attn_mrq.py:292")}
+    line = {"kernels": [dict(
+        name=name, route="cuda", source=src, replaces=rep,
+        launches=launches[name], max_abs_err=rows[name]["max_abs_err"],
+        ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
+        bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
+        library_ms=rows[name]["library_ms"])
+        for name, (src, rep) in sources.items()]}
+    log(f"total {time.perf_counter() - t0:.1f} s; trained drift {drift:.6f}")
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,306 @@
+// Fused int8 linears for Hopper (sm_90a): kernels B1 and B2.
+//
+// Replaces the Pallas kernels repro/kernels/int8_fused.py::int8_matmul_fq
+// (B1) and ::int8_matmul_mrq_fq (B2):
+//
+//   B1: y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1) @ wq)
+//            - corr[g]) * scale[g] + bias
+//   B2: qn = clip(rint(x'/s_neg[g]), -half, 0) where x' < 0, else 0
+//       qp = clip(rint(x'/s_pos[g]), 0, half-1) where x' >= 0, else 0
+//       y = (qn @ wq) * scale_neg[g] + (qp @ wq) * scale_pos[g] + bias
+//   prologue (optional): x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b], / ps
+//   epilogue (optional): y = res + gate[b] * y
+//
+// What bounds it on the card: at the DiT-XL/2 serving shapes (M = 2048,
+// K, N = 1152..6912) the s8 products are compute-bound on the tensor cores
+// (1979 TOP/s int8 dense); the fp prologue (an IEEE divide per activation
+// element) and the weight stream are the next costs.
+//
+// Design: two launches per call.
+// 1. quantize_kernel runs the prologue and the quantize ONCE per
+//    activation element and writes the codes, K padded to a multiple of
+//    64 with zero codes (B2 writes the two disjoint region-code tensors).
+//    On the TPU the quantize lived in the matmul's prologue to keep the
+//    codes out of HBM; here an M x K byte tensor costs microseconds of
+//    bandwidth, whereas redoing the divide once per 128-wide N tile (the
+//    fused form, this kernel's first version) cost more than the products.
+// 2. gemm_kernel: one CTA per 128 x 128 output tile, 8 warps of 64 x 32,
+//    mma.sync.m16n8k32 s8 x s8 -> s32 (exact), fed by a 3-stage cp.async
+//    ring of 64-deep k tiles. The weights arrive pre-transposed to (N, Kp)
+//    (k-contiguous, the layout the mma's B operand wants; built once per
+//    weight by the wrapper). B2 feeds each weight fragment to two
+//    accumulators, so the weights stream once. The K loop that the Pallas
+//    grid ran in sequence is the loop inside the CTA; the epilogue
+//    dequantizes, adds bias, applies gate + residual and writes once.
+//
+// Exactness: rintf (round half to even, as jnp.round), __fdiv_rn (IEEE
+// divide), __fmul_rn/__fadd_rn (each step rounds; built with -fmad=false
+// as well), in the reference's op order. The group index is read on the
+// device from an int32 pointer (capturable in a CUDA graph later). Ragged
+// M/N are masked in-kernel (zero-filled loads, guarded stores); padded K
+// columns carry zero codes against zero weights, so they add nothing.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256, STAGES = 3;
+constexpr int SROW = BK + 16;   // bytes per smem row: conflict-free fragment loads
+
+struct QArgs {          // quantize_kernel
+  const void* x; const float* s_a; const float* s_b; const int* g;
+  const float* ps; const int* bv; const float* mu; const float* rsig;
+  const float* sh; const float* sc;
+  int8_t* qa; int8_t* qb;                      // (M, Kp) codes
+  int M, K, Kp, half;
+};
+
+struct GArgs {          // gemm_kernel
+  const int8_t* qa; const int8_t* qb; const int8_t* wt;   // wt: (N, Kp)
+  const float* scale_a; const float* scale_b;  // B1: scale     B2: scale_neg, scale_pos
+  const int* corr; const float* bias; const int* g;
+  const int* bv; const float* gate; const void* res; void* out;
+  int M, N, Kp, res_bf16, out_bf16;
+};
+
+__device__ __forceinline__ float ldx(const float* p, long i) { return p[i]; }
+__device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+
+template <bool MRQ, typename TX>
+__global__ void quantize_kernel(QArgs a) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int words = a.Kp / 4;
+  if (i >= (long)a.M * words) return;
+  const int row = (int)(i / words), c4 = (int)(i % words) * 4;
+  const int grp = *a.g;
+  const float qa = a.s_a[grp], qb = a.s_b[grp];
+  const float fhalf = (float)a.half;
+  const TX* x = static_cast<const TX*>(a.x);
+  float mu = 0.f, rs = 0.f;
+  int b = 0;
+  if (a.mu) { mu = a.mu[row]; rs = a.rsig[row]; b = a.bv[row]; }
+  unsigned wa = 0, wb = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kk = c4 + j;
+    int ca = 0, cb = 0;
+    if (kk < a.K) {
+      float v = ldx(x, (long)row * a.K + kk);
+      if (a.mu) {
+        v = __fmul_rn(__fsub_rn(v, mu), rs);
+        const long o = (long)b * a.K + kk;
+        v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.0f, a.sc[o])), a.sh[o]);
+      }
+      if (a.ps) v = __fdiv_rn(v, a.ps[kk]);
+      if (!MRQ) {
+        float q = __fsub_rn(__fadd_rn(rintf(__fdiv_rn(v, qa)), qb), fhalf);
+        ca = (int)fminf(fmaxf(q, -fhalf), fhalf - 1.f);
+      } else if (v < 0.f) {
+        ca = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qa)), -fhalf), 0.f);
+      } else {
+        cb = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qb)), 0.f), fhalf - 1.f);
+      }
+    }
+    wa |= (unsigned)(ca & 0xFF) << (8 * j);
+    wb |= (unsigned)(cb & 0xFF) << (8 * j);
+  }
+  const long o = (long)row * a.Kp + c4;
+  *reinterpret_cast<unsigned*>(a.qa + o) = wa;
+  if (MRQ) *reinterpret_cast<unsigned*>(a.qb + o) = wb;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool MRQ>
+__global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
+  constexpr int R = MRQ ? 2 : 1;
+  constexpr int TILE = BM * SROW;               // bytes of one operand tile
+  extern __shared__ __align__(16) uint8_t smem[];
+  // stage s: A region r at smem + (s*(R+1) + r)*TILE, B at + (s*(R+1) + R)*TILE
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;       // 2 x 4 warps, 64 x 32 each
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int M = a.M, N = a.N, Kp = a.Kp, nk = Kp / BK;
+  const int8_t* qsrc[2] = {a.qa, a.qb};
+
+  auto load = [&](int stage, int k0) {
+    uint8_t* base = smem + stage * (R + 1) * TILE;
+    // 128 rows x 4 chunks of 16 B per operand: 2 chunks per thread
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int idx = tid + c * THREADS, r = idx >> 2, ch = (idx & 3) * 16;
+#pragma unroll
+      for (int rg = 0; rg < R; ++rg) {
+        const bool ok = m0 + r < M;
+        const int8_t* src = qsrc[rg] + (long)(ok ? m0 + r : 0) * Kp + k0 + ch;
+        cp_async16(base + rg * TILE + r * SROW + ch, src, ok);
+      }
+      const bool okb = n0 + r < N;
+      const int8_t* srcb = a.wt + (long)(okb ? n0 + r : 0) * Kp + k0 + ch;
+      cp_async16(base + R * TILE + r * SROW + ch, srcb, okb);
+    }
+  };
+
+  int acc[R][4][4][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const uint8_t* base = smem + (kt % STAGES) * (R + 1) * TILE;
+    const uint8_t* sB = base + R * TILE;
+#pragma unroll
+    for (int kc = 0; kc < BK; kc += 32) {
+      unsigned bf[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint8_t* p = sB + (wn * 32 + nt * 8 + gid) * SROW + kc + tig * 4;
+        bf[nt][0] = *reinterpret_cast<const unsigned*>(p);
+        bf[nt][1] = *reinterpret_cast<const unsigned*>(p + 16);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const uint8_t* p = base + r * TILE + (wm * 64 + mt * 16 + gid) * SROW
+                             + kc + tig * 4;
+          unsigned af[4];
+          af[0] = *reinterpret_cast<const unsigned*>(p);
+          af[1] = *reinterpret_cast<const unsigned*>(p + 8 * SROW);
+          af[2] = *reinterpret_cast<const unsigned*>(p + 16);
+          af[3] = *reinterpret_cast<const unsigned*>(p + 8 * SROW + 16);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[r][mt][nt], af, bf[nt][0], bf[nt][1]);
+        }
+      }
+    }
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load(nxt % STAGES, nxt * BK);
+    cp_async_commit();
+  }
+
+  // -- epilogue: dequant (+ bias) (+ gate * y + residual), one write ------
+  const int grp = *a.g;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * 64 + mt * 16 + gid + (e >> 1) * 8;
+        const int col = n0 + wn * 32 + nt * 8 + tig * 2 + (e & 1);
+        if (row >= M || col >= N) continue;
+        const long gc = (long)grp * N + col;
+        float y;
+        if (!MRQ) {
+          const int v = acc[0][mt][nt][e] - a.corr[gc];
+          y = __fadd_rn(__fmul_rn((float)v, a.scale_a[gc]), a.bias[col]);
+        } else {
+          y = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[0][mt][nt][e], a.scale_a[gc]),
+                                  __fmul_rn((float)acc[R - 1][mt][nt][e], a.scale_b[gc])),
+                        a.bias[col]);
+        }
+        const long o = (long)row * N + col;
+        if (a.gate) {
+          const float r = a.res_bf16
+              ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o])
+              : static_cast<const float*>(a.res)[o];
+          y = __fadd_rn(r, __fmul_rn(a.gate[(long)a.bv[row] * N + col], y));
+        }
+        if (a.out_bf16) static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(y);
+        else static_cast<float*>(a.out)[o] = y;
+      }
+}
+
+template <bool MRQ, typename TX>
+cudaError_t run(const QArgs& q, GArgs g, cudaStream_t s) {
+  const long words = (long)q.M * (q.Kp / 4);
+  quantize_kernel<MRQ, TX><<<(unsigned)((words + 255) / 256), 256, 0, s>>>(q);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  constexpr int R = MRQ ? 2 : 1;
+  const size_t smem = (size_t)STAGES * (R + 1) * BM * SROW;
+  e = cudaFuncSetAttribute(gemm_kernel<MRQ>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
+  gemm_kernel<MRQ><<<grid, THREADS, smem, s>>>(g);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// codes_a/codes_b: (M, Kp) int8 scratch allocated by the caller; wt: the
+// weights transposed to (N, Kp), zero-padded along K; Kp % 64 == 0.
+extern "C" int int8_matmul_launch(
+    const void* x, const void* wt, const void* s_a, const void* s_b,
+    const void* scale_a, const void* scale_b, const void* corr,
+    const void* bias, const void* g, const void* ps, const void* bv,
+    const void* mu, const void* rsig, const void* sh, const void* sc,
+    const void* gate, const void* res, void* out, void* codes_a,
+    void* codes_b, int M, int K, int Kp, int N, int half, int x_bf16,
+    int res_bf16, int out_bf16, int mrq, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % BK) return (int)cudaErrorInvalidValue;
+  QArgs q;
+  q.x = x; q.s_a = static_cast<const float*>(s_a); q.s_b = static_cast<const float*>(s_b);
+  q.g = static_cast<const int*>(g); q.ps = static_cast<const float*>(ps);
+  q.bv = static_cast<const int*>(bv); q.mu = static_cast<const float*>(mu);
+  q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
+  q.sc = static_cast<const float*>(sc);
+  q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
+  q.M = M; q.K = K; q.Kp = Kp; q.half = half;
+  GArgs a;
+  a.qa = q.qa; a.qb = q.qb; a.wt = static_cast<const int8_t*>(wt);
+  a.scale_a = static_cast<const float*>(scale_a);
+  a.scale_b = static_cast<const float*>(scale_b);
+  a.corr = static_cast<const int*>(corr); a.bias = static_cast<const float*>(bias);
+  a.g = q.g; a.bv = q.bv; a.gate = static_cast<const float*>(gate);
+  a.res = res; a.out = out;
+  a.M = M; a.N = N; a.Kp = Kp; a.res_bf16 = res_bf16; a.out_bf16 = out_bf16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);
+  else e = x_bf16 ? run<false, __nv_bfloat16>(q, a, s) : run<false, float>(q, a, s);
+  return (int)e;
+}
+
+extern "C" const char* cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

@@ -1,0 +1,92 @@
+"""Threefry-2x32 counter-based random numbers in torch integer ops.
+
+Reproduces ``jax.random`` under its default ``jax_threefry_partitionable
+= True`` so a request's noise is the reference's
+``normal(fold_in(PRNGKey(seed), i))`` bit for bit (the uint32 draws) and
+within a few ulps (the normals: ``erfinv`` is computed differently by
+torch and XLA). Keys are int64 tensors of shape (..., 2) holding uint32
+words; everything runs on whatever device the key lives on.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counter words (x1, x2) under
+    key words (k1, k2); all int64 tensors of uint32 values, broadcast."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x1 + ks[0]) & _M32
+    x1 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def PRNGKey(seed, device=None):
+    """Key(s) from integer seed(s): [seed >> 32, seed & 0xFFFFFFFF] (a
+    32-bit seed has a zero high word). ``seed`` may be an int or a 1-D
+    integer array/tensor; returns (2,) or (B, 2)."""
+    s = torch.as_tensor(np.asarray(seed, dtype=np.int64), device=device)
+    return torch.stack([(s >> 32) & _M32, s & _M32], dim=-1)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in``: hash the counter pair (0, data)."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1],
+                          torch.zeros_like(data), data)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def split(key, num: int = 2):
+    """``jax.random.split`` of one (2,) key -> (num, 2)."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], i >> 32, i & _M32)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key, shape):
+    """uint32 draws (as int64) of ``shape`` per key: key (..., 2) ->
+    (..., *shape). The counter of element j is the 64-bit iota j."""
+    n = math.prod(shape)
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    b1, b2 = threefry2x32(k1, k2, i >> 32, i & _M32)
+    return (b1 ^ b2).reshape(tuple(key.shape[:-1]) + tuple(shape))
+
+
+def uniform(key, shape, minval, maxval):
+    """float32 uniform in [minval, maxval) from the top 23 bits, as
+    ``jax.random.uniform``."""
+    bits = random_bits(key, shape)
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fb.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key, shape):
+    """float32 standard normals, ``sqrt(2) * erfinv(u)`` with u uniform in
+    (-1, 1) — ``jax.random.normal``'s construction."""
+    u = uniform(key, shape, _LO, 1.0)
+    return torch.erfinv(u) * _SQRT2

@@ -1,0 +1,43 @@
+"""Hand-written CUDA kernels for the serving path, their wrappers and
+their plain PyTorch versions.
+
+``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where
+it launches its CUDA kernel and nowhere else (plain-version calls never
+count), so a run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import contextlib
+
+LAUNCHES = {"int8_matmul_fq": 0, "int8_matmul_mrq_fq": 0,
+            "flash_attn_mrq": 0}
+
+_STATE = {"plain_on_cuda": False}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def plain_on_cuda():
+    """Within this block the wrappers run their plain versions on CUDA
+    tensors too — only for holding a whole forward on the card against
+    the kernels' one (``chip_smoke.py``); never a fallback."""
+    prev = _STATE["plain_on_cuda"]
+    _STATE["plain_on_cuda"] = True
+    try:
+        yield
+    finally:
+        _STATE["plain_on_cuda"] = prev
+
+
+def use_kernel(t) -> bool:
+    """Dispatch rule shared by every wrapper: CUDA tensors launch the
+    kernel, CPU tensors take the plain version, anything else raises."""
+    if t.device.type == "cuda":
+        return not _STATE["plain_on_cuda"]
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain version for device {t.device}")

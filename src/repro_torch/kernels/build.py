@@ -1,0 +1,113 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` with ``nvcc`` and bind
+them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain ``extern "C"`` interface (no PyTorch headers, so a build takes
+seconds), named after a hash of its source and flags so a stale library
+is never loaded. ``build_all`` starts one ``nvcc`` per source, all at
+once. Libraries go to ``repro_torch/_build/`` (git-ignored). A failed
+build raises with the compiler's output; nothing falls back.
+
+Flags: ``sm_90a``; ``-fmad=false`` so no multiply-add contracts into an
+FMA (the reference rounds every step); no ``--use_fast_math``, so ``/``
+is the IEEE divide and ``expf`` the accurate one.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("int8_fused", "flash_attn_mrq")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the port's kernels are built on the GPU host")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{h}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every source not yet built, in parallel. Returns seconds."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, out, tmp, p in procs:
+        log, _ = p.communicate()
+        BUILD_LOG[name] = log
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "int8_fused": {
+        # x wt s_a s_b scale_a scale_b corr bias g ps bv mu rsig sh sc gate
+        # res out codes_a codes_b | M K Kp N half x_bf16 res_bf16 out_bf16
+        # mrq | stream
+        "int8_matmul_launch": [_P] * 20 + [_I] * 9 + [_P],
+    },
+    "flash_attn_mrq": {
+        # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g out q8 k8 v8t |
+        # B M N D rep half x_bf16 out_bf16 | stream
+        "flash_attn_mrq_launch": [_P] * 15 + [_I] * 8 + [_P],
+    },
+}
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first."""
+    if name not in _LIBS:
+        build_all((name,))
+        so = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
+        so.cuda_error_string.argtypes = [ctypes.c_int]
+        so.cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = so
+    return _LIBS[name]
+
+
+def check(err: int, name: str, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and ``torch.cuda.synchronize`` would not report it)."""
+    if err != 0:
+        msg = _LIBS[name].cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

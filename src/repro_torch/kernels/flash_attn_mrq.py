@@ -1,0 +1,102 @@
+"""Flash-style fused int8 MRQ attention (kernel B3) — wrapper, plain
+version and launch count.
+
+``flash_attn_mrq`` replaces ``repro/kernels/flash_attn_mrq.py::
+flash_attn_mrq``: per (batch·head, q-tile), SymQ int8 QK^T dequantised by
+``qk_scale[g_qk]``, ``NEG_INF`` on ragged kv lanes before the online max,
+running max and denominator, MRQ two-region probability codes of
+``exp(s - m') / l'`` against ``s1[g_pv]`` (``s2 = 1/half``), dual-region
+integer P·V with the ``rho = exp(m - m') * l / l'`` rescale, and the
+epilogue ``acc1 * scale1 + acc2 * scale2``. kv tiles are 128 wide, as in
+the reference: the codes round against the running normalisation per
+tile, so another width would be another result.
+
+q: (B, M, D) f32/bf16; k, v: (Bk, N, D) with B = rep * Bk (GQA: q batch b
+reads kv batch b // rep). s_q/s_k/qk_scale: (Gq, 1) f32; s1/s_v/scale1/
+scale2: (Gp, 1) f32. The ``packed_kv`` (4-bit) variant and the boolean
+mask are not on the W8A8 serving path and wait for later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as _k
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.int8_fused import _DT, _need
+
+MAX_HEAD_DIM = 128
+
+
+def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
+                         scale2, g_qk=0, g_pv=0, *, bits=8,
+                         out_dtype=torch.float32):
+    """Plain version of B3: the tile-faithful recurrence
+    (``ref.flash_core_ref``) with kv gathered per q batch."""
+    rep = q.shape[0] // k.shape[0]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=0)
+        v = v.repeat_interleave(rep, dim=0)
+    return ref.flash_core_ref(
+        q, k, v, s_q[g_qk][0], s_k[g_qk][0], qk_scale[g_qk][0], s1[g_pv][0],
+        s_v[g_pv][0], scale1[g_pv][0], scale2[g_pv][0], bits,
+        out_dtype=out_dtype)
+
+
+def _pair_ptr(dev, g_qk: int, g_pv: int) -> int:
+    """Device pointer to the int32 pair [g_qk, g_pv] (cached per pair)."""
+    key = ("gpair", str(dev), g_qk, g_pv)
+    t = _PAIRS.get(key)
+    if t is None:
+        t = _PAIRS[key] = torch.tensor([g_qk, g_pv], dtype=torch.int32,
+                                       device=dev)
+    return t.data_ptr()
+
+
+_PAIRS: dict = {}
+
+
+def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
+                   g_qk=0, g_pv=0, *, bits=8, out_dtype=torch.float32):
+    """B3 (see the module docstring). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    if not _k.use_kernel(q):
+        return flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v,
+                                    scale1, scale2, g_qk, g_pv, bits=bits,
+                                    out_dtype=out_dtype)
+    B, M, D = q.shape
+    Bk, N, _ = k.shape
+    if B % Bk or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attn_mrq: q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} (head dim <= {MAX_HEAD_DIM})")
+    dev = q.device
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _need(q, "q", tuple(_DT), (B, M, D), dev)
+    _need(k, "k", (q.dtype,), (Bk, N, D), dev)
+    _need(v, "v", (q.dtype,), (Bk, N, D), dev)
+    Gq, Gp = s_q.shape[0], s1.shape[0]
+    for name, t, G in (("s_q", s_q, Gq), ("s_k", s_k, Gq),
+                       ("qk_scale", qk_scale, Gq), ("s1", s1, Gp),
+                       ("s_v", s_v, Gp), ("scale1", scale1, Gp),
+                       ("scale2", scale2, Gp)):
+        _need(t, name, (torch.float32,), (G, 1), dev)
+    if not (0 <= g_qk < Gq and 0 <= g_pv < Gp):
+        raise ValueError(f"groups ({g_qk}, {g_pv}) outside ({Gq}, {Gp})")
+    out = torch.empty((B, M, D), dtype=out_dtype, device=dev)
+    # int8 code scratch: head dim padded to the 32-deep mma (q, k) and to 8
+    # (v, transposed to kv-contiguous rows); rows padded to the tiles
+    DQ, DN = -32 * (-D // 32), -8 * (-D // 8)
+    Mp, Np = -64 * (-M // 64), -128 * (-N // 128)
+    q8 = torch.empty((B, Mp, DQ), dtype=torch.int8, device=dev)
+    k8 = torch.empty((Bk, Np, DQ), dtype=torch.int8, device=dev)
+    v8t = torch.empty((Bk, DN, Np), dtype=torch.int8, device=dev)
+    err = build.lib("flash_attn_mrq").flash_attn_mrq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s_q.data_ptr(),
+        s_k.data_ptr(), qk_scale.data_ptr(), s1.data_ptr(), s_v.data_ptr(),
+        scale1.data_ptr(), scale2.data_ptr(), _pair_ptr(dev, g_qk, g_pv),
+        out.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+        B, M, N, D, B // Bk, 2 ** (bits - 1), _DT[q.dtype], _DT[out_dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "flash_attn_mrq", "flash_attn_mrq")
+    _k.LAUNCHES["flash_attn_mrq"] += 1
+    return out
+

@@ -1,0 +1,192 @@
+"""Fused int8 linears (kernels B1 and B2) — wrappers, plain versions and
+launch counts.
+
+``int8_matmul_fq`` replaces ``repro/kernels/int8_fused.py::int8_matmul_fq``
+and ``int8_matmul_mrq_fq`` replaces ``::int8_matmul_mrq_fq``; both run the
+CUDA kernel in ``csrc/int8_fused.cu`` on CUDA tensors and their plain
+PyTorch version (``*_plain``, the torch port of the ``ref.py`` oracle) on
+CPU tensors.
+
+Computes (B1) ``y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1)
+@ wq) - corr[g]) * scale[g] + bias`` and (B2) the MRQ sign split
+``accn*scale_neg[g] + accp*scale_pos[g] + bias``, with the optional
+prologue ``x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b]`` then ``/ ps`` and
+the optional epilogue ``res + gate[b] * y``. The layernorm row stats
+(mu, rsig) are computed here, once, in torch (``ref.layernorm_stats``),
+and handed to kernel and plain version alike.
+
+Shapes: x (M, K) f32/bf16; wq (K, N) int8; sx/zx (G, 1) f32; scale (G, N)
+f32; corr (G, N) int32; bias (N,); ps (K,); nm = (shift, scale) (B, K);
+gr = (gate (B, N), residual (M, N)); bv (M,) int32 row -> batch map.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as _k
+from repro_torch.kernels import build, ref
+
+_DT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _group_ptr(dev, g: int) -> int:
+    """Device pointer to the int32 group index ``g`` (one cached
+    ``arange`` per device, so no host->device copy per launch)."""
+    key = ("gidx", str(dev))
+    t = _CACHE.get(key)
+    if t is None:
+        t = _CACHE[key] = torch.arange(4096, dtype=torch.int32, device=dev)
+    if not 0 <= g < t.numel():
+        raise ValueError(f"group index {g} out of range")
+    return t.data_ptr() + 4 * int(g)
+
+
+_CACHE: dict = {}
+_BK = 64                 # the kernel's k tile: codes and weights pad K to it
+_WT: dict = {}
+
+
+def _transposed(wq, Kp: int):
+    """The weight codes as (N, Kp), k-contiguous and zero-padded along K —
+    the layout the kernel's mma B operand reads. Built once per weight
+    tensor on the device and kept beside it (int8: the weights' own size
+    again)."""
+    key = (wq.data_ptr(), tuple(wq.shape))
+    hit = _WT.get(key)
+    if hit is not None and hit[0] is wq:
+        return hit[1]
+    K, N = wq.shape
+    wt = torch.zeros((N, Kp), dtype=torch.int8, device=wq.device)
+    wt[:, :K] = wq.t()
+    _WT[key] = (wq, wt)
+    return wt
+
+
+def _need(t, name, dtype, shape, dev):
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, expected {dev}")
+    if t.dtype not in dtype:
+        raise ValueError(f"{name} dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
+            stats, nm, gr, bv, bits, out_dtype):
+    M, K = x.shape
+    N = wq.shape[1]
+    G = scale_a.shape[0]
+    dev = x.device
+    f32, i32 = (torch.float32,), (torch.int32,)
+    _need(x, "x", tuple(_DT), (M, K), dev)
+    _need(wq, "wq", (torch.int8,), (K, N), dev)
+    for nm_, t in (("s_a", s_a), ("s_b", s_b)):
+        _need(t, nm_, f32, (G, 1), dev)
+    _need(scale_a, "scale_a", f32, (G, N), dev)
+    if mrq:
+        _need(scale_b, "scale_b", f32, (G, N), dev)
+    else:
+        _need(corr, "corr", i32, (G, N), dev)
+    _need(bias, "bias", f32, (N,), dev)
+    if not 0 <= g < G:
+        raise ValueError(f"group {g} outside [0, {G})")
+    if out_dtype not in _DT:
+        raise ValueError(f"out_dtype {out_dtype} not supported")
+    mu = rsig = sh = sc = gate = res = None
+    if ps is not None:
+        _need(ps, "ps", f32, (K,), dev)
+    if nm is not None or gr is not None:
+        _need(bv, "bv", i32, (M,), dev)
+    if nm is not None:
+        mu, rsig = (s.reshape(M) for s in stats)
+        sh, sc = nm
+        _need(sh, "shift", f32, (sh.shape[0], K), dev)
+        _need(sc, "scale", f32, sh.shape, dev)
+    if gr is not None:
+        gate, res = gr
+        _need(gate, "gate", f32, (gate.shape[0], N), dev)
+        _need(res, "residual", tuple(_DT), (M, N), dev)
+    Kp = -_BK * (-K // _BK)
+    wt = _transposed(wq, Kp)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    codes = torch.empty((2 if mrq else 1, M, Kp), dtype=torch.int8, device=dev)
+    so = build.lib("int8_fused")
+    err = so.int8_matmul_launch(
+        x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
+        scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
+        _group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
+        _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
+        codes[0].data_ptr(), codes[-1].data_ptr(), M, K, Kp, N,
+        2 ** (bits - 1), _DT[x.dtype],
+        _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "int8_fused",
+                "int8_matmul_mrq_fq" if mrq else "int8_matmul_fq")
+    _k.LAUNCHES["int8_matmul_mrq_fq" if mrq else "int8_matmul_fq"] += 1
+    return out
+
+
+def _prep(x, nm, gr, bias, N):
+    stats = ref.layernorm_stats(x) if nm is not None else None
+    if bias is None:
+        bias = torch.zeros((N,), dtype=torch.float32, device=x.device)
+    if gr is not None:
+        gate, res = gr
+        gr = (gate.float().contiguous(), res.contiguous())
+    if nm is not None:
+        nm = tuple(t.float().contiguous() for t in nm)
+    return stats, bias.float().contiguous(), nm, gr
+
+
+def int8_matmul_fq_plain(x, wq, sx, zx, scale, corr, bias=None, g=0, *,
+                         ps=None, stats=None, nm=None, gr=None, bv=None,
+                         bits=8, out_dtype=torch.float32):
+    """Plain version of B1: ``ref.int8_matmul_fq_fused_ref`` with the
+    wrapper's layernorm stats."""
+    return ref.int8_matmul_fq_fused_ref(
+        x, wq, sx, zx, scale, corr, bias=bias, g=g, ps=ps, nm=nm, gr=gr,
+        bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+
+
+def int8_matmul_mrq_fq_plain(x, wq, s_neg, s_pos, scale_neg, scale_pos,
+                             bias=None, g=0, *, ps=None, stats=None, nm=None,
+                             gr=None, bv=None, bits=8,
+                             out_dtype=torch.float32):
+    """Plain version of B2."""
+    return ref.int8_matmul_mrq_fq_fused_ref(
+        x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=bias, g=g, ps=ps,
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+
+
+def int8_matmul_fq(x, wq, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
+                   nm=None, gr=None, bv=None, bits=8,
+                   out_dtype=torch.float32):
+    """B1 (see the module docstring). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    stats, bias, nm, gr = _prep(x, nm, gr, bias, wq.shape[1])
+    if _k.use_kernel(x):
+        return _launch(False, x.contiguous(), wq, sx, zx, scale, None, corr,
+                       bias, g, ps, stats, nm, gr, bv, bits, out_dtype)
+    return int8_matmul_fq_plain(x, wq, sx, zx, scale, corr, bias, g, ps=ps,
+                                stats=stats, nm=nm, gr=gr, bv=bv, bits=bits,
+                                out_dtype=out_dtype)
+
+
+def int8_matmul_mrq_fq(x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=None,
+                       g=0, *, ps=None, nm=None, gr=None, bv=None, bits=8,
+                       out_dtype=torch.float32):
+    """B2 (see the module docstring)."""
+    stats, bias, nm, gr = _prep(x, nm, gr, bias, wq.shape[1])
+    if _k.use_kernel(x):
+        return _launch(True, x.contiguous(), wq, s_neg, s_pos, scale_neg,
+                       scale_pos, None, bias, g, ps, stats, nm, gr, bv,
+                       bits, out_dtype)
+    return int8_matmul_mrq_fq_plain(
+        x, wq, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
+        stats=stats, nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)

@@ -1,0 +1,304 @@
+"""Serving-path kernel wrappers and the pack builders — port of the
+scalar-group, byte-code part of ``repro/kernels/ops.py``.
+
+``convert_for_kernels`` turns calibrated qparams plus fp weights into the
+packs ``QuantContext(kernel=True)`` dispatches on: an ``int8`` pack per
+plain/TGQ-uniform linear (-> B1 ``int8_matmul_fq``), an ``int8_mrq`` pack
+per MRQ-signed-input linear (-> B2 ``int8_matmul_mrq_fq``), and the
+``int8_qk`` / ``int8_pv`` packs per attention block (-> B3
+``flash_attn_mrq``). Activation-side parameters are stacked along a
+leading (G,) TGQ group axis; the kernels read the group's row themselves.
+
+Not ported yet (later slices, ROADMAP queue 1): the int4 packs, the
+per-row ``_vec`` dispatch and the composed attention chain.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.quantizers import (
+    ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
+)
+from repro_torch.kernels.flash_attn_mrq import flash_attn_mrq
+from repro_torch.kernels.int8_fused import int8_matmul_fq, int8_matmul_mrq_fq
+from repro_torch.quant.groups import resolve_group
+
+
+# ---------------------------------------------------------------------------
+# pack builders
+# ---------------------------------------------------------------------------
+def _unwrap_tgq(q):
+    if isinstance(q, TGQ):
+        return q.inner, True
+    return q, False
+
+
+def _stack_param(p, is_tgq) -> torch.Tensor:
+    """Activation param -> (G, 1) f32 column (G=1 for per-tensor)."""
+    a = torch.as_tensor(p).float()
+    if not is_tgq:
+        if a.ndim != 0:
+            raise ValueError(f"per-tensor param must be scalar, got {a.shape}")
+        return a.reshape(1, 1)
+    if a.ndim != 1:
+        raise ValueError(f"TGQ param must be stacked (G,), got {a.shape}")
+    return a.reshape(-1, 1)
+
+
+def _weight_codes(wq_q: ChannelQ, w, half: int = 128) -> Optional[tuple]:
+    """(codes (K,N) int8, sw (N,) f32) or None if not a packable 2D linear."""
+    sw = torch.as_tensor(wq_q.scale).float().reshape(-1)
+    w = torch.as_tensor(w).float()
+    if w.ndim != 2 or sw.shape[0] != w.shape[-1]:
+        return None
+    codes = torch.clamp(torch.round(w / sw[None, :]), -(half - 1), half - 1
+                        ).to(torch.int8)
+    return codes, sw
+
+
+def _prescale_vec(qp: Dict[str, Any], w) -> Optional[torch.Tensor]:
+    ps = qp.get("x_prescale")
+    if ps is None:
+        return None
+    ps = torch.as_tensor(ps).float().reshape(-1)
+    if w.ndim == 2 and ps.shape[0] != w.shape[0]:
+        raise ValueError(
+            f"x_prescale length {ps.shape[0]} != weight K {w.shape[0]}")
+    return ps
+
+
+def _balanced_w(w, ps):
+    return w if ps is None else w.float() * ps[:, None]
+
+
+def pack_int8_linear(qp: Dict[str, Any], w) -> Optional[dict]:
+    """Pack one linear (``UniformQ`` / ``TGQ(UniformQ)`` input,
+    ``ChannelQ`` weight, 8 or 6 bits) for B1."""
+    xq_q, is_tgq = _unwrap_tgq(qp.get("x"))
+    if not isinstance(xq_q, UniformQ) or not isinstance(qp.get("w"), ChannelQ):
+        return None
+    wq_q: ChannelQ = qp["w"]
+    bits = int(wq_q.bits)
+    if bits not in (6, 8) or xq_q.bits != bits:
+        return None
+    half = 2 ** (bits - 1)
+    try:
+        sx = _stack_param(xq_q.scale, is_tgq)
+        zx = _stack_param(xq_q.zero, is_tgq)
+    except ValueError:
+        return None
+    ps = _prescale_vec(qp, w)
+    cw = _weight_codes(wq_q, _balanced_w(w, ps), half)
+    if cw is None:
+        return None
+    codes, sw = cw
+    colsum = codes.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    z_eff = torch.round(zx).to(torch.int32) - half
+    pack = {"wq": codes, "sx": sx, "zx": zx, "scale": sx * sw[None, :],
+            "corr": z_eff * colsum[None, :], "groups": int(sx.shape[0]),
+            "bits": bits}
+    if ps is not None:
+        pack["x_prescale"] = ps
+    return pack
+
+
+def pack_int8_mrq_linear(qp: Dict[str, Any], w) -> Optional[dict]:
+    """Pack an MRQ-signed-input linear (post-GELU fc2) for B2."""
+    xq_q, is_tgq = _unwrap_tgq(qp.get("x"))
+    if not isinstance(xq_q, MRQSignedQ) or not isinstance(
+            qp.get("w"), ChannelQ):
+        return None
+    wq_q: ChannelQ = qp["w"]
+    bits = int(wq_q.bits)
+    if bits not in (6, 8) or xq_q.bits != bits:
+        return None
+    try:
+        s_neg = _stack_param(xq_q.s_neg, is_tgq)
+        s_pos = _stack_param(xq_q.s_pos, is_tgq)
+    except ValueError:
+        return None
+    ps = _prescale_vec(qp, w)
+    cw = _weight_codes(wq_q, _balanced_w(w, ps), 2 ** (bits - 1))
+    if cw is None:
+        return None
+    codes, sw = cw
+    pack = {"wq": codes, "s_neg": s_neg, "s_pos": s_pos,
+            "scale_neg": s_neg * sw[None, :], "scale_pos": s_pos * sw[None, :],
+            "groups": int(s_neg.shape[0]), "bits": bits}
+    if ps is not None:
+        pack["x_prescale"] = ps
+    return pack
+
+
+def _broadcast_groups(*cols):
+    G = max(int(c.shape[0]) for c in cols)
+    out = []
+    for c in cols:
+        if c.shape[0] not in (1, G):
+            return None
+        out.append(c.expand(G, 1).contiguous())
+    return tuple(out) + (G,)
+
+
+def pack_int8_qk(qp: Dict[str, Any]) -> Optional[dict]:
+    """Pack an attention QK^T einsum (``SymQ`` / ``TGQ(SymQ)`` on both)."""
+    xq_q, x_tgq = _unwrap_tgq(qp.get("x"))
+    bq_q, b_tgq = _unwrap_tgq(qp.get("b"))
+    if not isinstance(xq_q, SymQ) or not isinstance(bq_q, SymQ):
+        return None
+    if xq_q.bits != bq_q.bits or xq_q.bits not in (4, 6, 8):
+        return None
+    try:
+        s_q = _stack_param(xq_q.scale, x_tgq)
+        s_k = _stack_param(bq_q.scale, b_tgq)
+    except ValueError:
+        return None
+    bc = _broadcast_groups(s_q, s_k)
+    if bc is None:
+        return None
+    s_q, s_k, G = bc
+    return {"s_q": s_q, "s_k": s_k, "scale": s_q * s_k, "groups": G,
+            "bits": int(xq_q.bits)}
+
+
+def pack_int8_pv(qp: Dict[str, Any]) -> Optional[dict]:
+    """Pack an attention P·V einsum (``MRQSoftmaxQ`` probs, ``SymQ`` v)."""
+    xq_q, x_tgq = _unwrap_tgq(qp.get("x"))
+    bq_q, b_tgq = _unwrap_tgq(qp.get("b"))
+    if not isinstance(xq_q, MRQSoftmaxQ) or not isinstance(bq_q, SymQ):
+        return None
+    if xq_q.bits != bq_q.bits or xq_q.bits not in (4, 6, 8):
+        return None
+    try:
+        s1 = _stack_param(xq_q.s1, x_tgq)
+        s_v = _stack_param(bq_q.scale, b_tgq)
+    except ValueError:
+        return None
+    bc = _broadcast_groups(s1, s_v)
+    if bc is None:
+        return None
+    s1, s_v, G = bc
+    s2 = 1.0 / (2 ** (xq_q.bits - 1))
+    return {"s1": s1, "s_v": s_v, "scale1": s1 * s_v, "scale2": s2 * s_v,
+            "groups": G, "bits": int(xq_q.bits)}
+
+
+def convert_for_kernels(qparams: Dict[str, dict],
+                        weights: Dict[str, Any]) -> Dict[str, dict]:
+    """Adds an ``int8`` / ``int8_mrq`` pack to every eligible linear and an
+    ``int8_qk`` / ``int8_pv`` pack to every eligible attention einsum.
+    4-bit recipes get no linear pack here (the int4 family is a later
+    slice), so their linears show up in ``fallback_ops()``."""
+    out = {}
+    for name, qp in qparams.items():
+        qp = dict(qp)
+        if name in weights:
+            w = torch.as_tensor(weights[name])
+            for key, builder in (("int8", pack_int8_linear),
+                                 ("int8_mrq", pack_int8_mrq_linear)):
+                pack = builder(qp, w)
+                if pack is not None:
+                    qp[key] = pack
+                    break
+        if name.endswith("/qk"):
+            qpack = pack_int8_qk(qp)
+            if qpack is not None:
+                qp["int8_qk"] = qpack
+        elif name.endswith("/pv"):
+            ppack = pack_int8_pv(qp)
+            if ppack is not None:
+                qp["int8_pv"] = ppack
+        out[name] = qp
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def _group_index(pack: dict, tgroup) -> int:
+    """The TGQ group clamped into the pack's range (scalar groups)."""
+    return resolve_group(tgroup, pack["groups"])
+
+
+def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
+    """Kernel-side ``ps``/``nm``/``gr``/``bv`` operands for one linear;
+    matmul rows stay batch-major under ``x.reshape(-1, K)``, so the
+    row -> batch map is a plain repeat."""
+    kw = {}
+    ps = pack.get("x_prescale")
+    if ps is not None:
+        kw["ps"] = ps
+    if norm_mod is None and gate_residual is None:
+        return kw
+    ref_rows = norm_mod[0] if norm_mod is not None else gate_residual[0]
+    B = int(ref_rows.shape[0])
+    n_rows = int(xm.shape[0])
+    if n_rows % B != 0:
+        raise ValueError(
+            f"fusion rows: {n_rows} matmul rows not divisible by batch {B}")
+    kw["bv"] = torch.arange(B, dtype=torch.int32, device=xm.device
+                            ).repeat_interleave(n_rows // B)
+    if norm_mod is not None:
+        kw["nm"] = tuple(t.float() for t in norm_mod)
+    if gate_residual is not None:
+        gate, res = gate_residual
+        kw["gr"] = (gate.float(), res.reshape(-1, res.shape[-1]))
+    return kw
+
+
+def int8_linear(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
+                norm_mod=None, gate_residual=None):
+    """Fused quantize -> matmul -> dequant serving linear (B1)."""
+    out_dtype = out_dtype or x.dtype
+    shape = x.shape
+    xm = x.reshape(-1, shape[-1])
+    y = int8_matmul_fq(
+        xm, pack["wq"], pack["sx"], pack["zx"], pack["scale"], pack["corr"],
+        bias=None if bias is None else bias.float(),
+        g=_group_index(pack, tgroup), bits=pack.get("bits", 8),
+        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
+                                              gate_residual))
+    return y.reshape(shape[:-1] + (pack["wq"].shape[1],))
+
+
+def int8_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
+                    norm_mod=None, gate_residual=None):
+    """MRQ-input serving linear (B2): one weight traversal, two region
+    accumulators."""
+    out_dtype = out_dtype or x.dtype
+    shape = x.shape
+    xm = x.reshape(-1, shape[-1])
+    y = int8_matmul_mrq_fq(
+        xm, pack["wq"], pack["s_neg"], pack["s_pos"], pack["scale_neg"],
+        pack["scale_pos"], bias=None if bias is None else bias.float(),
+        g=_group_index(pack, tgroup), bits=pack.get("bits", 8),
+        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
+                                              gate_residual))
+    return y.reshape(shape[:-1] + (pack["wq"].shape[1],))
+
+
+def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
+                    scale=1.0, tgroup=None, out_dtype=None):
+    """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3).
+
+    q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd). Returns
+    (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale."""
+    if mask is not None:
+        raise NotImplementedError(
+            "masked flash attention is not on the DiT serving path")
+    out_dtype = out_dtype or q.dtype
+    B, Sq, Hk, G, hd = q.shape
+    Skv = k.shape[1]
+    BHG = B * Hk * G
+    qf = q.permute(0, 2, 3, 1, 4).reshape(BHG, Sq, hd)
+    kf = k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
+    out = flash_attn_mrq(
+        qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
+        qk_pack["scale"] * torch.tensor(scale, dtype=torch.float32),
+        pv_pack["s1"], pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"],
+        g_qk=_group_index(qk_pack, tgroup), g_pv=_group_index(pv_pack, tgroup),
+        bits=int(qk_pack.get("bits", 8)), out_dtype=out_dtype)
+    return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)

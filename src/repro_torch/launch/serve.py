@@ -1,0 +1,149 @@
+"""Serving launcher for the port — the DiT branch of ``repro/launch/serve.py``.
+
+A request stream is coalesced into fixed-shape microbatches (step
+bucketed, padded, CFG-paired) and served by ``ServeEngine`` on one GPU;
+``--quantize w8a8 --calib range`` range-calibrates on the card and serves
+through the CUDA kernels (fused int8 linears, flash MRQ attention).
+
+  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w8a8 \\
+      --requests 8 --microbatch 4 --steps 20 --cfg-scale 1.5
+
+``--smoke`` uses the tiny config; ``--device cpu`` runs the plain
+versions on the CPU. ``--load-artifact``/``--save-artifact``, ``--async``,
+``--dp``, w6a6/w4a4 and the LM branch wait for later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+import warnings
+
+
+def fake_quant_fallback_warning(artifact):
+    """The warning for an artifact whose quantized ops do not all lower
+    onto the kernels, or None when every one does."""
+    if not artifact.has_kernel_packs:
+        return (f"artifact {artifact.recipe.bits}/{artifact.recipe.method} "
+                "carries no kernel packs: serving falls back to FAKE-QUANT")
+    fb = artifact.fallback_ops()
+    if not fb:
+        return None
+    shown = ", ".join(fb[:8]) + (", ..." if len(fb) > 8 else "")
+    return (f"artifact {artifact.recipe.bits}/{artifact.recipe.method}: "
+            f"{len(fb)} quantized op(s) carry no kernel pack and fall back "
+            f"to FAKE-QUANT: {shown}")
+
+
+def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
+          microbatch: int, steps: int, cfg_scale: float, device=None):
+    """Model, artifact (or None), engine and scheduler for one serve —
+    the launcher's whole set-up, shared with ``chip_smoke.py``."""
+    import torch
+
+    from repro_torch.configs import dit_xl_2
+    from repro_torch.device import resolve_device
+    from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
+    from repro_torch.models.dit import dit_init
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    if arch != "dit-xl-2":
+        raise SystemExit(f"--arch {arch}: the port serves dit-xl-2 only "
+                         "(the LM zoo is ROADMAP queue 1, item 13)")
+    dev = resolve_device(device)
+    cfg = dit_xl_2.smoke() if smoke else dit_xl_2.full()
+    params = perturb_init(dit_init(seed, cfg, device=dev), seed)
+    dif = DiffusionCfg(T=1000)
+    sched = make_schedule(dif)
+    artifact, ctx = None, None
+    info = {}
+    if quantize != "none":
+        from repro_torch.quant.api import quantize as run_quantize
+        from repro_torch.quant.recipe import QuantRecipe
+        t0 = time.perf_counter()
+        artifact = run_quantize(params, cfg, dif,
+                                QuantRecipe(bits=quantize, method="range",
+                                            seed=seed), sched=sched,
+                                provenance={"arch": arch, "smoke": smoke})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        info["calib_s"] = time.perf_counter() - t0
+        msg = fake_quant_fallback_warning(artifact)
+        if msg is not None:
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        ctx = artifact.context()
+    engine = ServeEngine(params, cfg, dif, sched, ctx=ctx,
+                         microbatch=microbatch, step_buckets=(steps,),
+                         device=dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    labels = torch.randint(0, cfg.n_classes, (requests,), generator=gen)
+    sq = RequestScheduler(microbatch=microbatch, step_buckets=(steps,),
+                          n_classes=cfg.n_classes)
+    for i in range(requests):
+        sq.submit(int(labels[i]), steps=steps, cfg_scale=cfg_scale,
+                  seed=seed * 100_000 + i)
+    return cfg, params, artifact, engine, sq, info
+
+
+def perturb_init(params, seed: int):
+    """adaLN-Zero initialises every gate to 0, so an initialised DiT
+    predicts a constant and no block reaches the sample. Perturb it as the
+    tests' tiny DiT is: blocks += 0.01 N(0,1), final.w = 0.02 N(0,1)."""
+    import torch
+
+    from repro_torch.models.dit import map_tree
+    w = params["final"]["w"]
+    gen = torch.Generator(device=w.device).manual_seed(int(seed) + 9)
+    noise = lambda a: torch.randn(a.shape, generator=gen, device=a.device)
+    params = dict(params)
+    params["final"] = {"w": (noise(w) * 0.02).to(w.dtype),
+                       "b": params["final"]["b"]}
+    params["blocks"] = map_tree(
+        lambda a: (a.float() + noise(a) * 0.01).to(a.dtype),
+        params["blocks"])
+    return params
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--microbatch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=25)
+    ap.add_argument("--cfg-scale", type=float, default=1.0)
+    ap.add_argument("--quantize", default="none", choices=("none", "w8a8"))
+    ap.add_argument("--calib", default="range", choices=("range",))
+    ap.add_argument("--dump-samples", default=None, metavar="NPY")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    cfg, _, artifact, engine, sq, info = build(
+        args.arch, args.smoke, args.quantize, args.seed, args.requests,
+        args.microbatch, args.steps, args.cfg_scale, device=args.device)
+    if artifact is not None:
+        print(f"range-calibrated {artifact.summary()} in "
+              f"{info['calib_s']:.1f}s")
+    t0 = time.perf_counter()
+    results = sq.run(engine)
+    dt = time.perf_counter() - t0
+    samples = np.stack([results[r].sample for r in sorted(results)])
+    if args.dump_samples is not None:
+        np.save(args.dump_samples, samples)
+        print(f"dumped {samples.shape} samples -> {args.dump_samples}")
+    st = engine.stats
+    print(f"served {len(results)} requests x {args.steps} steps on "
+          f"{engine.device} in {dt:.2f}s ({len(results) / dt:.2f} req/s, "
+          f"{dt / (st['microbatches'] * args.steps) * 1000:.1f} ms/step); "
+          f"{st['microbatches']} microbatches, {st['padded_slots']} padded "
+          "slots")
+    print(f"sample mean={samples.mean():.4f} std={samples.std():.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,186 @@
+"""Diffusion Transformer (DiT) with adaLN-Zero — port of ``repro/models/dit.py``.
+
+Parameters are a nested dict of tensors in the reference's layout: linear
+weights (K, N), block parameters stacked along a leading layer axis,
+latents (B, H, W, C). Every quantization-relevant op routes through the
+op context, so the same forward serves fp, fake-quant and the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.nn.ctx import FPContext
+from repro_torch.nn.layers import embedding_apply, sincos_2d, timestep_embedding
+
+_FP = FPContext()
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTCfg:
+    img_size: int = 32            # latent spatial size
+    in_ch: int = 4                # latent channels
+    patch: int = 2
+    d_model: int = 1152
+    n_layers: int = 28
+    n_heads: int = 16
+    mlp_ratio: float = 4.0
+    n_classes: int = 1000
+    dtype: str = "float32"
+    scan_layers: bool = False
+    remat: bool = False
+    class_dropout: float = 0.1
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def n_tokens(self):
+        return (self.img_size // self.patch) ** 2
+
+    @property
+    def d_ff(self):
+        return int(self.d_model * self.mlp_ratio)
+
+    @property
+    def head_dim(self):
+        return self.d_model // self.n_heads
+
+    @property
+    def patch_dim(self):
+        return self.patch * self.patch * self.in_ch
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def dit_init(seed: int, cfg: DiTCfg, device=None):
+    """Initialised parameters drawn from a seeded ``torch.Generator``
+    (normal(0.02) weights, zero biases; ``ada``, ``final_ada`` and
+    ``final`` zero-initialised as adaLN-Zero prescribes). Not bit-equal
+    to ``repro.models.dit.dit_init``: the tests hand both packages the
+    same numpy weights instead."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    d, f, L, dt = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.tdtype
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dt)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    grid = cfg.img_size // cfg.patch
+    return {
+        "x_proj": {"w": w(cfg.patch_dim, d), "b": z(d)},
+        "pos": torch.from_numpy(sincos_2d(d, grid, grid)).to(dev, dt),
+        "t_mlp1": {"w": w(256, d), "b": z(d)},
+        "t_mlp2": {"w": w(d, d), "b": z(d)},
+        "y_embed": {"emb": w(cfg.n_classes + 1, d)},
+        "blocks": {
+            "qkv": {"w": w(L, d, 3 * d), "b": z(L, 3 * d)},
+            "proj": {"w": w(L, d, d), "b": z(L, d)},
+            "fc1": {"w": w(L, d, f), "b": z(L, f)},
+            "fc2": {"w": w(L, f, d), "b": z(L, d)},
+            "ada": {"w": z(L, d, 6 * d), "b": z(L, 6 * d)},
+        },
+        "final_ada": {"w": z(d, 2 * d), "b": z(2 * d)},
+        "final": {"w": z(d, cfg.patch_dim), "b": z(cfg.patch_dim)},
+    }
+
+
+def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
+    """A nested dict of numpy arrays (e.g. ``experiments/*.pkl``) -> the
+    same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    t = torch.from_numpy(np.ascontiguousarray(tree)).to(dev)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# patchify
+# ---------------------------------------------------------------------------
+def patchify(x, patch):
+    """(B,H,W,C) -> (B, (H/p)*(W/p), p*p*C)"""
+    B, H, W, C = x.shape
+    p = patch
+    x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, (H // p) * (W // p), p * p * C)
+
+
+def unpatchify(x, patch, img_size, ch):
+    B = x.shape[0]
+    p, g = patch, img_size // patch
+    x = x.reshape(B, g, g, p, p, ch).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, img_size, img_size, ch)
+
+
+# ---------------------------------------------------------------------------
+# block + forward
+# ---------------------------------------------------------------------------
+def dit_block_apply(p, cfg: DiTCfg, x, c, *, ctx=_FP, name="blk"):
+    """x: (B,N,d); c: (B,d). adaLN-Zero MHSA + MLP; the norm-modulate
+    and gate+residual chains ride the ``ctx.linear`` fusion seams."""
+    B, N, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    mod = ctx.linear(f"{name}/ada", F.silu(c), p["ada"]["w"], p["ada"]["b"])
+    sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
+
+    qkv = ctx.linear(f"{name}/qkv", x, p["qkv"]["w"], p["qkv"]["b"],
+                     norm_mod=(sh1, sc1))
+    qkv = qkv.reshape(B, N, 3, H, hd)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]      # (B,N,H,hd)
+    o = ctx.attention(f"{name}/attn", q.reshape(B, N, H, 1, hd), k, v,
+                      scale=hd ** -0.5)
+    x = ctx.linear(f"{name}/proj", o.reshape(B, N, d), p["proj"]["w"],
+                   p["proj"]["b"], gate_residual=(g1, x))
+
+    h = ctx.linear(f"{name}/fc1", x, p["fc1"]["w"], p["fc1"]["b"],
+                   norm_mod=(sh2, sc2))
+    h = F.gelu(h, approximate="tanh")
+    h = ctx.act(f"{name}/gelu", h, "post_gelu")
+    return ctx.linear(f"{name}/fc2", h, p["fc2"]["w"], p["fc2"]["b"],
+                      gate_residual=(g2, x))
+
+
+def dit_apply(p, cfg: DiTCfg, x, t, y, *, ctx=_FP):
+    """Noise prediction. x: (B,H,W,C) latents; t: (B,) int timesteps;
+    y: (B,) int class labels (cfg.n_classes = the null/uncond row)."""
+    dt = cfg.tdtype
+    tok = patchify(x.to(dt), cfg.patch)
+    h = ctx.linear("x_proj", tok, p["x_proj"]["w"], p["x_proj"]["b"])
+    h = h + p["pos"][None]
+
+    temb = timestep_embedding(t, 256).to(dt)
+    temb = ctx.linear("t_mlp1", temb, p["t_mlp1"]["w"], p["t_mlp1"]["b"])
+    temb = F.silu(temb)
+    temb = ctx.linear("t_mlp2", temb, p["t_mlp2"]["w"], p["t_mlp2"]["b"])
+    yemb = embedding_apply(p["y_embed"], y).to(dt)
+    c = temb + yemb
+
+    for i in range(cfg.n_layers):
+        bp = map_tree(lambda a: a[i], p["blocks"])
+        h = dit_block_apply(bp, cfg, h, c, ctx=ctx.at_layer(i),
+                            name=f"blk{i}")
+
+    mod = ctx.linear("final_ada", F.silu(c), p["final_ada"]["w"],
+                     p["final_ada"]["b"])
+    sh, sc = torch.chunk(mod, 2, dim=-1)
+    out = ctx.linear("final", h, p["final"]["w"], p["final"]["b"],
+                     norm_mod=(sh, sc))
+    return unpatchify(out, cfg.patch, cfg.img_size, cfg.in_ch)

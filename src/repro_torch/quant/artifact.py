@@ -1,0 +1,193 @@
+"""`QuantArtifact` — reading the reference's calibrated quantization state.
+
+Port of the read side of ``repro/quant/artifact.py``: an artifact written
+by ``repro.quant.QuantArtifact.save`` (``artifact.json`` + npz shards, no
+pickle) loads here with every leaf equal — quantizer containers, kernel
+packs and metadata — as torch tensors on the requested device. Writing
+(``save``) arrives with the calibration slice (ROADMAP queue 1, item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.core.quantizers import (
+    ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
+)
+from repro_torch.device import resolve_device
+from repro_torch.quant.recipe import QuantRecipe
+
+ARTIFACT_VERSION = 1
+_ARTIFACT_JSON = "artifact.json"
+_QUANTIZERS = {c.__name__: c for c in
+               (UniformQ, SymQ, ChannelQ, MRQSoftmaxQ, MRQSignedQ, TGQ)}
+_KERNEL_PACKS = ("int8", "int8_mrq", "int4", "int4_mrq")
+
+
+def _decode(spec: dict, leaves: List[Any]) -> Any:
+    k = spec["k"]
+    if k == "none":
+        return None
+    if k == "py":
+        return spec["v"]
+    if k == "dict":
+        return {key: _decode(s, leaves) for key, s in spec["items"].items()}
+    if k in ("list", "tuple"):
+        seq = [_decode(s, leaves) for s in spec["items"]]
+        return tuple(seq) if k == "tuple" else seq
+    if k == "q":
+        cls = _QUANTIZERS[spec["cls"]]
+        return cls(**{n: _decode(s, leaves)
+                      for n, s in spec["fields"].items()})
+    if k == "arr":
+        return leaves[spec["i"]]
+    raise ValueError(f"unknown artifact spec node kind {k!r}")
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclasses.dataclass
+class QuantArtifact:
+    """qparams + recipe + provenance metadata."""
+    qparams: Dict[str, dict]
+    recipe: QuantRecipe
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def has_kernel_packs(self) -> bool:
+        return any(any(p in qp for p in _KERNEL_PACKS + ("int8_qk", "int8_pv"))
+                   for qp in self.qparams.values())
+
+    def fallback_ops(self) -> List[str]:
+        """Quantized matmul ops whose qparams carry NO kernel pack (they
+        would take the fake-quant path under ``context(kernel=True)``)."""
+        out: List[str] = []
+        for name in sorted(self.qparams):
+            qp = self.qparams[name]
+            if name.endswith("/qk"):
+                if "int8_qk" not in qp:
+                    out.append(name)
+            elif name.endswith("/pv"):
+                if "int8_pv" not in qp:
+                    out.append(name)
+            elif "w" in qp and not any(p in qp for p in _KERNEL_PACKS):
+                out.append(name)
+        return out
+
+    def packed_counts(self) -> Dict[str, int]:
+        """Ops packed per serving kernel: {'int8_matmul_fq': n,
+        'int8_matmul_mrq_fq': n, 'flash_attn_mrq': n} (one launch each
+        per forward)."""
+        qp = self.qparams.values()
+        return {"int8_matmul_fq": sum("int8" in q for q in qp),
+                "int8_matmul_mrq_fq": sum("int8_mrq" in q for q in qp),
+                "flash_attn_mrq": sum("int8_qk" in q for q in qp)}
+
+    def context(self, kernel: Optional[bool] = None,
+                attn_impl: Optional[str] = None):
+        """The op context serving this artifact (kernels when packs exist
+        unless ``kernel=False``)."""
+        from repro_torch.core.contexts import QuantContext
+        if kernel is None:
+            kernel = self.has_kernel_packs
+        if kernel and not self.has_kernel_packs:
+            raise ValueError(
+                f"artifact has no kernel packs (recipe {self.recipe.bits}/"
+                f"{self.recipe.method}); serve it with kernel=False")
+        return QuantContext(qparams=self.qparams, kernel=kernel,
+                            attn_impl=attn_impl or self.recipe.attn_impl)
+
+    @property
+    def params_hash(self) -> Optional[dict]:
+        return self.meta.get("params_hash")
+
+    def check_params(self, params) -> None:
+        """Fail fast if ``params`` is not the fp tree this artifact was
+        calibrated against."""
+        want = self.params_hash
+        if want is None:
+            return
+        got = ckpt.content_hash(params)
+        if got["digest"] == want["digest"]:
+            return
+        if got["n_leaves"] != want["n_leaves"]:
+            raise ValueError(
+                f"params mismatch: artifact was calibrated against a tree "
+                f"with {want['n_leaves']} leaves, got {got['n_leaves']}")
+        n_bad = sum(a != b for a, b in zip(got["leaves"], want["leaves"]))
+        raise ValueError(
+            f"params content hash mismatch: {n_bad}/{want['n_leaves']} "
+            f"leaves differ (digest {got['digest']} != {want['digest']})")
+
+    def model_cfg(self):
+        m = self.meta.get("model") or {}
+        if m.get("class") != "DiTCfg":
+            raise ValueError(f"artifact has no DiTCfg metadata (model = "
+                             f"{m.get('class')!r})")
+        from repro_torch.models.dit import DiTCfg
+        return DiTCfg(**m["cfg"])
+
+    def dif_cfg(self):
+        if "dif" not in self.meta:
+            raise ValueError("artifact has no DiffusionCfg metadata")
+        from repro_torch.diffusion.ddpm import DiffusionCfg
+        return DiffusionCfg(**self.meta["dif"])
+
+    def summary(self) -> str:
+        c = self.packed_counts()
+        return (f"QuantArtifact({self.recipe.bits}/{self.recipe.method}: "
+                f"{len(self.qparams)} ops, "
+                f"{c['int8_matmul_fq'] + c['int8_matmul_mrq_fq']} int8 "
+                f"linear packs, {c['flash_attn_mrq']} int8 attention "
+                f"blocks, G={self.meta.get('tgq_groups')})")
+
+    @classmethod
+    def load(cls, path: str, expect_recipe: Optional[QuantRecipe] = None,
+             params=None, device=None) -> "QuantArtifact":
+        """Load from ``path`` onto ``device`` (default ``"cuda"``), with
+        the reference's guards: format version, recipe mismatch, json vs
+        shard consistency, shard integrity, and (with ``params``) the fp
+        tree's content hash."""
+        dev = resolve_device(device)
+        doc_path = os.path.join(path, _ARTIFACT_JSON)
+        if not os.path.exists(doc_path):
+            raise FileNotFoundError(f"no quantization artifact at {path} "
+                                    f"(missing {_ARTIFACT_JSON})")
+        with open(doc_path) as f:
+            doc = json.load(f)
+        if doc.get("version") != ARTIFACT_VERSION:
+            raise ValueError(f"artifact version {doc.get('version')} != "
+                             f"supported {ARTIFACT_VERSION}")
+        recipe = QuantRecipe.from_dict(doc["recipe"])
+        if expect_recipe is not None and expect_recipe != recipe:
+            raise ValueError("artifact recipe mismatch: " + "; ".join(
+                f"{k}: artifact={a!r} expected={b!r}"
+                for k, (a, b) in recipe.diff(expect_recipe).items()))
+        step = ckpt.latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"artifact at {path} has no committed "
+                                    "leaf checkpoint")
+        with open(os.path.join(path, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest["hashes"] != doc["leaf_hashes"]:
+            raise ValueError(f"artifact at {path} is inconsistent: "
+                             "artifact.json does not match the committed "
+                             "leaf checkpoint — re-save the artifact")
+        if manifest["n_leaves"] != doc["n_leaves"]:
+            raise ValueError(f"leaf count drift at {path}")
+        ckpt.verify_shards(path, step=step)
+        leaves = [_to_tensor(a, dev) for a in ckpt.restore(path, step=step)]
+        art = cls(qparams=_decode(doc["spec"], leaves), recipe=recipe,
+                  meta=doc["meta"])
+        if params is not None:
+            art.check_params(params)
+        return art
