@@ -7,7 +7,8 @@
   (row-subsampled) operand tensors per op, tagged with the TGQ group.
 - ``QuantContext``       — applies the calibrated quantizers: fake-quant
   by default, or (``kernel=True``) the packed linears through the CUDA
-  kernels B1/B2 and whole attention blocks through B3.
+  kernels B1/B2 (8 and 6 bits) and B4/B5 (4 bits), and whole attention
+  blocks through B3 (B3b at 4 bits).
 
 Provenance uses tensor identity: ``act(name, x, kind)`` marks ``id(x)`` so
 the directly consuming matmul knows its operand's distribution. The
@@ -174,11 +175,13 @@ class CalibrationContext(OpContext):
 class QuantContext(OpContext):
     """Applies calibrated quantizers (fake-quant by default).
 
-    ``kernel=True`` routes ``int8`` packs through B1, ``int8_mrq`` packs
-    through B2 and attention blocks whose ``/qk`` and ``/pv`` qparams
-    carry ``int8_qk`` / ``int8_pv`` packs through B3 (``attn_impl``
-    'flash'; the composed chain is a later slice). Ops without a pack take
-    the fake-quant path."""
+    ``kernel=True`` routes each linear that carries a pack of
+    ``kernels.ops.LINEAR_PACKS`` through that pack's wrapper (``int8`` ->
+    B1, ``int8_mrq`` -> B2, ``int4`` -> B4, ``int4_mrq`` -> B5) and
+    attention blocks whose ``/qk`` and ``/pv`` qparams carry ``int8_qk`` /
+    ``int8_pv`` packs through B3 (``attn_impl`` 'flash'; the composed
+    chain is a later slice). Ops without a pack take the fake-quant path
+    (``QuantArtifact.fallback_ops`` lists them)."""
     qparams: Dict[str, dict] = dataclasses.field(default_factory=dict)
     kernel: bool = False
     attn_impl: str = "flash"
@@ -212,10 +215,9 @@ class QuantContext(OpContext):
             y = y + b if b is not None else y
             return apply_gate_residual(y, gate_residual)
         if self.kernel:
-            for key, fn in (("int8", "int8_linear"),
-                            ("int8_mrq", "int8_linear_mrq")):
+            from repro_torch.kernels import ops as kops
+            for key, fn, _ in kops.LINEAR_PACKS:
                 if qp.get(key) is not None:
-                    from repro_torch.kernels import ops as kops
                     bias, ob = self._fold_out_bias(b, qp.get("out_bias"),
                                                    gate_residual)
                     y = getattr(kops, fn)(
@@ -255,7 +257,7 @@ class QuantContext(OpContext):
                     raise NotImplementedError(
                         f"attn_impl={self.attn_impl!r}: the composed "
                         "attention chain is a later slice (ROADMAP queue 1, "
-                        "item 8)")
+                        "item 9)")
                 from repro_torch.kernels import ops as kops
                 return kops.flash_attention(
                     q, k, v, qk_qp["int8_qk"], pv_qp["int8_pv"], mask=mask,

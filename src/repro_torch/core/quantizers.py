@@ -153,7 +153,7 @@ def apply_quantizer(q, x, tgroup=None):
         if getattr(tgroup, "ndim", 0) == 1:
             raise NotImplementedError(
                 "vector tgroups arrive with the async serving slice "
-                "(ROADMAP queue 1, item 9)")
+                "(ROADMAP queue 1, item 8)")
         return q(x, int(tgroup))
     return q(x)
 

@@ -1,0 +1,119 @@
+// Shared by the port's CUDA sources: the once-per-element quantize pass
+// of the fused linears (csrc/int8_fused.cu: B1, B2; csrc/int4_packed.cu:
+// B4, B5), which runs the prologue fusions, and the cp.async and mma.sync
+// helpers of every kernel (csrc/flash_attn_mrq.cu too).
+//
+// quantize_kernel writes the activation codes as (M, Kq) int8, four per
+// thread. Code column c holds x column k = (c / gkp) * gk + c % gkp: K is
+// cut into groups of gk columns and each group is zero-padded to gkp code
+// columns, so a GEMM k tile never straddles two groups (the int4 family's
+// per-K-group scales). The int8 family passes gk = gkp = Kq: one group,
+// c = k. Columns past K, and the padding of each group, get code 0.
+//
+// Exactness: rintf (round half to even, as torch.round / jnp.round),
+// __fdiv_rn (IEEE divide), __fmul_rn/__fadd_rn (each step rounds; built
+// with -fmad=false as well), in the reference's op order.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+struct QArgs {
+  const void* x; const float* s_a; const float* s_b; const int* g;
+  const float* ps; const int* bv; const float* mu; const float* rsig;
+  const float* sh; const float* sc;
+  int8_t* qa; int8_t* qb;                      // (M, Kq) codes
+  int M, K, Kq, half;
+  int gk, gkp;                                 // see the header comment
+};
+
+__device__ __forceinline__ float ldx(const float* p, long i) { return p[i]; }
+__device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+
+// Prologue (optional): x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b], / ps.
+// Affine:  c = clip(rint(x'/s_a[g]) + s_b[g] - half, -half, half-1).
+// MRQ:     region a (x' < 0): clip(rint(x'/s_a[g]), -half, 0);
+//          region b (x' >= 0): clip(rint(x'/s_b[g]), 0, half-1).
+template <bool MRQ, typename TX>
+__global__ void quantize_kernel(QArgs a) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int words = a.Kq / 4;
+  if (i >= (long)a.M * words) return;
+  const int row = (int)(i / words), c4 = (int)(i % words) * 4;
+  const int grp = *a.g;
+  const float qa = a.s_a[grp], qb = a.s_b[grp];
+  const float fhalf = (float)a.half;
+  const TX* x = static_cast<const TX*>(a.x);
+  float mu = 0.f, rs = 0.f;
+  int b = 0;
+  if (a.mu) { mu = a.mu[row]; rs = a.rsig[row]; b = a.bv[row]; }
+  unsigned wa = 0, wb = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c4 + j, cg = c % a.gkp;
+    const int kk = (c / a.gkp) * a.gk + cg;
+    int ca = 0, cb = 0;
+    if (cg < a.gk && kk < a.K) {
+      float v = ldx(x, (long)row * a.K + kk);
+      if (a.mu) {
+        v = __fmul_rn(__fsub_rn(v, mu), rs);
+        const long o = (long)b * a.K + kk;
+        v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.0f, a.sc[o])), a.sh[o]);
+      }
+      if (a.ps) v = __fdiv_rn(v, a.ps[kk]);
+      if (!MRQ) {
+        float q = __fsub_rn(__fadd_rn(rintf(__fdiv_rn(v, qa)), qb), fhalf);
+        ca = (int)fminf(fmaxf(q, -fhalf), fhalf - 1.f);
+      } else if (v < 0.f) {
+        ca = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qa)), -fhalf), 0.f);
+      } else {
+        cb = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qb)), 0.f), fhalf - 1.f);
+      }
+    }
+    wa |= (unsigned)(ca & 0xFF) << (8 * j);
+    wb |= (unsigned)(cb & 0xFF) << (8 * j);
+  }
+  const long o = (long)row * a.Kq + c4;
+  *reinterpret_cast<unsigned*>(a.qa + o) = wa;
+  if (MRQ) *reinterpret_cast<unsigned*>(a.qb + o) = wb;
+}
+
+template <bool MRQ, typename TX>
+cudaError_t launch_quantize(const QArgs& q, cudaStream_t s) {
+  const long words = (long)q.M * (q.Kq / 4);
+  quantize_kernel<MRQ, TX><<<(unsigned)((words + 255) / 256), 256, 0, s>>>(q);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace
+
+extern "C" const char* cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}

@@ -33,28 +33,18 @@
 //    grid ran in sequence is the loop inside the CTA; the epilogue
 //    dequantizes, adds bias, applies gate + residual and writes once.
 //
-// Exactness: rintf (round half to even, as jnp.round), __fdiv_rn (IEEE
-// divide), __fmul_rn/__fadd_rn (each step rounds; built with -fmad=false
-// as well), in the reference's op order. The group index is read on the
-// device from an int32 pointer (capturable in a CUDA graph later). Ragged
+// Exactness: see csrc/common.cuh (quantize_kernel); the epilogue rounds
+// each step (__fmul_rn/__fadd_rn) in the reference's op order. The group
+// index is read on the device from an int32 pointer (capturable in a CUDA
+// graph later). Ragged
 // M/N are masked in-kernel (zero-filled loads, guarded stores); padded K
 // columns carry zero codes against zero weights, so they add nothing.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256, STAGES = 3;
 constexpr int SROW = BK + 16;   // bytes per smem row: conflict-free fragment loads
-
-struct QArgs {          // quantize_kernel
-  const void* x; const float* s_a; const float* s_b; const int* g;
-  const float* ps; const int* bv; const float* mu; const float* rsig;
-  const float* sh; const float* sc;
-  int8_t* qa; int8_t* qb;                      // (M, Kp) codes
-  int M, K, Kp, half;
-};
 
 struct GArgs {          // gemm_kernel
   const int8_t* qa; const int8_t* qb; const int8_t* wt;   // wt: (N, Kp)
@@ -63,76 +53,6 @@ struct GArgs {          // gemm_kernel
   const int* bv; const float* gate; const void* res; void* out;
   int M, N, Kp, res_bf16, out_bf16;
 };
-
-__device__ __forceinline__ float ldx(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-
-template <bool MRQ, typename TX>
-__global__ void quantize_kernel(QArgs a) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int words = a.Kp / 4;
-  if (i >= (long)a.M * words) return;
-  const int row = (int)(i / words), c4 = (int)(i % words) * 4;
-  const int grp = *a.g;
-  const float qa = a.s_a[grp], qb = a.s_b[grp];
-  const float fhalf = (float)a.half;
-  const TX* x = static_cast<const TX*>(a.x);
-  float mu = 0.f, rs = 0.f;
-  int b = 0;
-  if (a.mu) { mu = a.mu[row]; rs = a.rsig[row]; b = a.bv[row]; }
-  unsigned wa = 0, wb = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kk = c4 + j;
-    int ca = 0, cb = 0;
-    if (kk < a.K) {
-      float v = ldx(x, (long)row * a.K + kk);
-      if (a.mu) {
-        v = __fmul_rn(__fsub_rn(v, mu), rs);
-        const long o = (long)b * a.K + kk;
-        v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.0f, a.sc[o])), a.sh[o]);
-      }
-      if (a.ps) v = __fdiv_rn(v, a.ps[kk]);
-      if (!MRQ) {
-        float q = __fsub_rn(__fadd_rn(rintf(__fdiv_rn(v, qa)), qb), fhalf);
-        ca = (int)fminf(fmaxf(q, -fhalf), fhalf - 1.f);
-      } else if (v < 0.f) {
-        ca = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qa)), -fhalf), 0.f);
-      } else {
-        cb = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qb)), 0.f), fhalf - 1.f);
-      }
-    }
-    wa |= (unsigned)(ca & 0xFF) << (8 * j);
-    wb |= (unsigned)(cb & 0xFF) << (8 * j);
-  }
-  const long o = (long)row * a.Kp + c4;
-  *reinterpret_cast<unsigned*>(a.qa + o) = wa;
-  if (MRQ) *reinterpret_cast<unsigned*>(a.qb + o) = wb;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <bool MRQ>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
@@ -251,9 +171,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
 
 template <bool MRQ, typename TX>
 cudaError_t run(const QArgs& q, GArgs g, cudaStream_t s) {
-  const long words = (long)q.M * (q.Kp / 4);
-  quantize_kernel<MRQ, TX><<<(unsigned)((words + 255) / 256), 256, 0, s>>>(q);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_quantize<MRQ, TX>(q, s);
   if (e != cudaSuccess) return e;
   constexpr int R = MRQ ? 2 : 1;
   const size_t smem = (size_t)STAGES * (R + 1) * BM * SROW;
@@ -285,7 +203,7 @@ extern "C" int int8_matmul_launch(
   q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
   q.sc = static_cast<const float*>(sc);
   q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
-  q.M = M; q.K = K; q.Kp = Kp; q.half = half;
+  q.M = M; q.K = K; q.Kq = Kp; q.half = half; q.gk = Kp; q.gkp = Kp;
   GArgs a;
   a.qa = q.qa; a.qb = q.qb; a.wt = static_cast<const int8_t*>(wt);
   a.scale_a = static_cast<const float*>(scale_a);
@@ -299,8 +217,4 @@ extern "C" int int8_matmul_launch(
   if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);
   else e = x_bf16 ? run<false, __nv_bfloat16>(q, a, s) : run<false, float>(q, a, s);
   return (int)e;
-}
-
-extern "C" const char* cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

@@ -3,14 +3,16 @@ their plain PyTorch versions.
 
 ``LAUNCHES`` counts kernel launches per kernel: a wrapper adds one where
 it launches its CUDA kernel and nowhere else (plain-version calls never
-count), so a run can show that its path went through the kernels.
+count), so a run can show that its path went through the kernels. The
+packed-kv flash variant counts under its own key.
 """
 from __future__ import annotations
 
 import contextlib
 
 LAUNCHES = {"int8_matmul_fq": 0, "int8_matmul_mrq_fq": 0,
-            "flash_attn_mrq": 0}
+            "int4_matmul_fq": 0, "int4_matmul_mrq_fq": 0,
+            "flash_attn_mrq": 0, "flash_attn_mrq_packed_kv": 0}
 
 _STATE = {"plain_on_cuda": False}
 

@@ -3,10 +3,11 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain ``extern "C"`` interface (no PyTorch headers, so a build takes
-seconds), named after a hash of its source and flags so a stale library
-is never loaded. ``build_all`` starts one ``nvcc`` per source, all at
-once. Libraries go to ``repro_torch/_build/`` (git-ignored). A failed
-build raises with the compiler's output; nothing falls back.
+seconds), named after a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale library is never loaded.
+``build_all`` starts one ``nvcc`` per source, all at once. Libraries go
+to ``repro_torch/_build/`` (git-ignored). A failed build raises with the
+compiler's output; nothing falls back.
 
 Flags: ``sm_90a``; ``-fmad=false`` so no multiply-add contracts into an
 FMA (the reference rounds every step); no ``--use_fast_math``, so ``/``
@@ -25,7 +26,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("int8_fused", "flash_attn_mrq")
+SOURCES = ("int8_fused", "int4_packed", "flash_attn_mrq")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so"
 
@@ -83,10 +85,15 @@ _SIGNATURES = {
         # mrq | stream
         "int8_matmul_launch": [_P] * 20 + [_I] * 9 + [_P],
     },
+    "int4_packed": {
+        # as int8_matmul_launch | M K Kq N gk gkp nk x_bf16 res_bf16
+        # out_bf16 mrq | stream
+        "int4_matmul_launch": [_P] * 20 + [_I] * 11 + [_P],
+    },
     "flash_attn_mrq": {
         # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g out q8 k8 v8t |
-        # B M N D rep half x_bf16 out_bf16 | stream
-        "flash_attn_mrq_launch": [_P] * 15 + [_I] * 8 + [_P],
+        # B M N D rep half packed_kv x_bf16 out_bf16 | stream
+        "flash_attn_mrq_launch": [_P] * 15 + [_I] * 9 + [_P],
     },
 }
 

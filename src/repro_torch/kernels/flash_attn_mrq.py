@@ -1,5 +1,5 @@
-"""Flash-style fused int8 MRQ attention (kernel B3) — wrapper, plain
-version and launch count.
+"""Flash-style fused int8 MRQ attention (kernel B3, and B3b: its 4-bit
+packed-kv variant) — wrapper, plain version and launch counts.
 
 ``flash_attn_mrq`` replaces ``repro/kernels/flash_attn_mrq.py::
 flash_attn_mrq``: per (batch·head, q-tile), SymQ int8 QK^T dequantised by
@@ -13,8 +13,13 @@ tile, so another width would be another result.
 
 q: (B, M, D) f32/bf16; k, v: (Bk, N, D) with B = rep * Bk (GQA: q batch b
 reads kv batch b // rep). s_q/s_k/qk_scale: (Gq, 1) f32; s1/s_v/scale1/
-scale2: (Gp, 1) f32. The ``packed_kv`` (4-bit) variant and the boolean
-mask are not on the W8A8 serving path and wait for later slices.
+scale2: (Gp, 1) f32.
+
+``packed_kv=True`` (bits 4 only, the W4A4 serving path, B3b): the k and v
+codes are stored two per byte and widened by the kernel as it loads each
+tile — the same codes and arithmetic as unpacked 4-bit, half the kv code
+bytes; it counts under ``LAUNCHES["flash_attn_mrq_packed_kv"]``. The
+boolean mask is not on the DiT serving path and waits for a later slice.
 """
 from __future__ import annotations
 
@@ -28,9 +33,9 @@ MAX_HEAD_DIM = 128
 
 
 def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
-                         scale2, g_qk=0, g_pv=0, *, bits=8,
+                         scale2, g_qk=0, g_pv=0, *, bits=8, packed_kv=False,
                          out_dtype=torch.float32):
-    """Plain version of B3: the tile-faithful recurrence
+    """Plain version of B3 (and B3b): the tile-faithful recurrence
     (``ref.flash_core_ref``) with kv gathered per q batch."""
     rep = q.shape[0] // k.shape[0]
     if rep > 1:
@@ -39,7 +44,7 @@ def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
     return ref.flash_core_ref(
         q, k, v, s_q[g_qk][0], s_k[g_qk][0], qk_scale[g_qk][0], s1[g_pv][0],
         s_v[g_pv][0], scale1[g_pv][0], scale2[g_pv][0], bits,
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, packed_kv=packed_kv)
 
 
 def _pair_ptr(dev, g_qk: int, g_pv: int) -> int:
@@ -56,13 +61,16 @@ _PAIRS: dict = {}
 
 
 def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
-                   g_qk=0, g_pv=0, *, bits=8, out_dtype=torch.float32):
-    """B3 (see the module docstring). CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+                   g_qk=0, g_pv=0, *, bits=8, packed_kv=False,
+                   out_dtype=torch.float32):
+    """B3 / B3b (see the module docstring). CUDA tensors launch the
+    kernel, CPU tensors take the plain version."""
+    if packed_kv and bits != 4:
+        raise ValueError("packed_kv streams nibbles: 4-bit codes only")
     if not _k.use_kernel(q):
         return flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v,
                                     scale1, scale2, g_qk, g_pv, bits=bits,
-                                    out_dtype=out_dtype)
+                                    packed_kv=packed_kv, out_dtype=out_dtype)
     B, M, D = q.shape
     Bk, N, _ = k.shape
     if B % Bk or not 0 < D <= MAX_HEAD_DIM:
@@ -83,20 +91,23 @@ def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
         raise ValueError(f"groups ({g_qk}, {g_pv}) outside ({Gq}, {Gp})")
     out = torch.empty((B, M, D), dtype=out_dtype, device=dev)
     # int8 code scratch: head dim padded to the 32-deep mma (q, k) and to 8
-    # (v, transposed to kv-contiguous rows); rows padded to the tiles
+    # (v, transposed to kv-contiguous rows); rows padded to the tiles;
+    # packed_kv halves k's head dim and v's kv axis (two codes per byte)
     DQ, DN = -32 * (-D // 32), -8 * (-D // 8)
     Mp, Np = -64 * (-M // 64), -128 * (-N // 128)
+    per = 2 if packed_kv else 1
     q8 = torch.empty((B, Mp, DQ), dtype=torch.int8, device=dev)
-    k8 = torch.empty((Bk, Np, DQ), dtype=torch.int8, device=dev)
-    v8t = torch.empty((Bk, DN, Np), dtype=torch.int8, device=dev)
+    k8 = torch.empty((Bk, Np, DQ // per), dtype=torch.int8, device=dev)
+    v8t = torch.empty((Bk, DN, Np // per), dtype=torch.int8, device=dev)
     err = build.lib("flash_attn_mrq").flash_attn_mrq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), s_q.data_ptr(),
         s_k.data_ptr(), qk_scale.data_ptr(), s1.data_ptr(), s_v.data_ptr(),
         scale1.data_ptr(), scale2.data_ptr(), _pair_ptr(dev, g_qk, g_pv),
         out.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
-        B, M, N, D, B // Bk, 2 ** (bits - 1), _DT[q.dtype], _DT[out_dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "flash_attn_mrq", "flash_attn_mrq")
-    _k.LAUNCHES["flash_attn_mrq"] += 1
+        B, M, N, D, B // Bk, 2 ** (bits - 1), int(packed_kv), _DT[q.dtype],
+        _DT[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+    name = "flash_attn_mrq_packed_kv" if packed_kv else "flash_attn_mrq"
+    build.check(err, "flash_attn_mrq", name)
+    _k.LAUNCHES[name] += 1
     return out
 

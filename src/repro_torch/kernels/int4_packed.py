@@ -1,0 +1,147 @@
+"""Packed-int4 fused linears (kernels B4 and B5) — wrappers, plain versions
+and launch counts.
+
+``int4_matmul_fq`` replaces ``repro/kernels/int4_packed.py::int4_matmul_fq``
+and ``int4_matmul_mrq_fq`` replaces ``::int4_matmul_mrq_fq``; both run the
+CUDA kernel in ``csrc/int4_packed.cu`` on CUDA tensors and their plain
+PyTorch version (``*_plain``, the torch port of the ``ref.py`` oracle) on
+CPU tensors.
+
+Weights are signed 4-bit codes two per byte along K (``ref.pack_int4``:
+row ``2i`` in byte ``i``'s low nibble, ``2i + 1`` in its high nibble),
+with a scale per (K group of ``group_k`` rows, output channel). Computes
+(B4) ``y = sum_kg (q4(x') @ w[kg] - corr[g, kg]) * scale[g, kg] + bias``
+and (B5) the MRQ sign split ``sum_kg (qn @ w[kg]) * scale_neg[g, kg] +
+(qp @ w[kg]) * scale_pos[g, kg] + bias``, each group's partial added into
+an f32 accumulator in ascending order; activation codes at 4 bits
+(``clip(rint(x'/sx[g]) + zx[g] - 8, -8, 7)``). The fusions (``ps``,
+``nm``, ``gr``, ``bv``) are B1's (``kernels/int8_fused.py``).
+
+Shapes: x (M, K) f32/bf16; wp (Kp/2, N) int8 with Kp = nk * group_k >= K;
+sx/zx (G, 1) f32; scale (G, nk, N) f32; corr (G, nk, N) int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as _k
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.int8_fused import (
+    _BK, _DT, _need, _ptr, cached_layout, check_operands, group_ptr, prep,
+)
+
+
+def _padded_group(group_k: int) -> int:
+    """Code columns per K group in the kernel: group_k rounded up to the
+    64-deep k tile, so no tile straddles two scale groups."""
+    return -_BK * (-group_k // _BK)
+
+
+# Byte order inside each 16-byte chunk (32 k codes) of the kernel's weight
+# copy: thread t of an mma quad reads bytes 4t..4t+3, which must hold k
+# 4t..4t+3 (pack bytes 2t, 2t+1) and k 16+4t..19+4t (pack bytes 8+2t,
+# 9+2t) — its two B fragments.
+_FRAGMENT_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
+
+
+def _weight_layout(wp, group_k: int):
+    """The packed weights as (N, Kq/2), k-contiguous, each K group padded
+    with zero bytes to ``_padded_group(group_k) / 2``, each 16-byte chunk
+    in ``_FRAGMENT_ORDER`` — the layout the kernel streams. A byte gather
+    of the pack: nibble pairs never straddle a group (group_k is even),
+    so the encoding is unchanged. Built once per weight tensor and kept
+    while the weight lives (half the int8 copy's size)."""
+    def build(w):
+        half_k, N = w.shape
+        nk = 2 * half_k // group_k
+        gkp = _padded_group(group_k)
+        w3 = w.reshape(nk, group_k // 2, N)
+        out = torch.zeros((N, nk, gkp // 2), dtype=torch.int8, device=w.device)
+        out[:, :, :group_k // 2] = w3.permute(2, 0, 1)
+        order = torch.tensor(_FRAGMENT_ORDER, device=w.device)
+        return out.reshape(N, -1, 16)[:, :, order].reshape(N, nk * gkp // 2)
+    return cached_layout(wp, ("int4", group_k), build)
+
+
+def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
+            stats, nm, gr, bv, group_k, out_dtype):
+    M, K = x.shape
+    Kp, N = 2 * wp.shape[0], wp.shape[1]
+    if group_k <= 0 or group_k % 2 or Kp % group_k or Kp // group_k != \
+            -(-K // group_k):
+        raise ValueError(f"int4: group_k {group_k} does not tile the packed "
+                         f"K {Kp} (x has K {K})")
+    nk = Kp // group_k
+    dev = x.device
+    _need(wp, "wp", (torch.int8,), (Kp // 2, N), dev)
+    mu, rsig, sh, sc, gate, res = check_operands(
+        x, (scale_a.shape[0], nk, N), s_a, s_b, scale_a, scale_b, corr, bias,
+        g, ps, stats, nm, gr, bv, out_dtype)
+    gkp = _padded_group(group_k)
+    wt = _weight_layout(wp, group_k)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    codes = torch.empty((2 if mrq else 1, M, nk * gkp), dtype=torch.int8,
+                        device=dev)
+    err = build.lib("int4_packed").int4_matmul_launch(
+        x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
+        scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
+        group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
+        _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
+        codes[0].data_ptr(), codes[-1].data_ptr(), M, K, nk * gkp, N,
+        group_k, gkp, nk, _DT[x.dtype],
+        _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
+        torch.cuda.current_stream(dev).cuda_stream)
+    name = "int4_matmul_mrq_fq" if mrq else "int4_matmul_fq"
+    build.check(err, "int4_packed", name)
+    _k.LAUNCHES[name] += 1
+    return out
+
+
+def int4_matmul_fq_plain(x, wp, sx, zx, scale, corr, bias=None, g=0, *,
+                         ps=None, stats=None, nm=None, gr=None, bv=None,
+                         group_k=256, out_dtype=torch.float32):
+    """Plain version of B4: ``ref.int4_matmul_fq_fused_ref`` with the
+    wrapper's layernorm stats."""
+    return ref.int4_matmul_fq_fused_ref(
+        x, wp, sx, zx, scale, corr, bias=bias, g=g, ps=ps, nm=nm, gr=gr,
+        bv=bv, group_k=group_k, out_dtype=out_dtype, stats=stats)
+
+
+def int4_matmul_mrq_fq_plain(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                             bias=None, g=0, *, ps=None, stats=None, nm=None,
+                             gr=None, bv=None, group_k=256,
+                             out_dtype=torch.float32):
+    """Plain version of B5."""
+    return ref.int4_matmul_mrq_fq_fused_ref(
+        x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=bias, g=g, ps=ps,
+        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype,
+        stats=stats)
+
+
+def int4_matmul_fq(x, wp, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
+                   nm=None, gr=None, bv=None, group_k=256,
+                   out_dtype=torch.float32):
+    """B4 (see the module docstring). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    if _k.use_kernel(x):
+        return _launch(False, x.contiguous(), wp, sx, zx, scale, None, corr,
+                       bias, g, ps, stats, nm, gr, bv, group_k, out_dtype)
+    return int4_matmul_fq_plain(x, wp, sx, zx, scale, corr, bias, g, ps=ps,
+                                stats=stats, nm=nm, gr=gr, bv=bv,
+                                group_k=group_k, out_dtype=out_dtype)
+
+
+def int4_matmul_mrq_fq(x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=None,
+                       g=0, *, ps=None, nm=None, gr=None, bv=None,
+                       group_k=256, out_dtype=torch.float32):
+    """B5 (see the module docstring)."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    if _k.use_kernel(x):
+        return _launch(True, x.contiguous(), wp, s_neg, s_pos, scale_neg,
+                       scale_pos, None, bias, g, ps, stats, nm, gr, bv,
+                       group_k, out_dtype)
+    return int4_matmul_mrq_fq_plain(
+        x, wp, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
+        stats=stats, nm=nm, gr=gr, bv=bv, group_k=group_k,
+        out_dtype=out_dtype)

@@ -21,6 +21,8 @@ gr = (gate (B, N), residual (M, N)); bv (M,) int32 row -> batch map.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch import kernels as _k
@@ -29,7 +31,7 @@ from repro_torch.kernels import build, ref
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _group_ptr(dev, g: int) -> int:
+def group_ptr(dev, g: int) -> int:
     """Device pointer to the int32 group index ``g`` (one cached
     ``arange`` per device, so no host->device copy per launch)."""
     key = ("gidx", str(dev))
@@ -43,23 +45,34 @@ def _group_ptr(dev, g: int) -> int:
 
 _CACHE: dict = {}
 _BK = 64                 # the kernel's k tile: codes and weights pad K to it
-_WT: dict = {}
+_LAYOUTS: dict = {}      # id(weight) -> (weakref to it, {tag: layout copy})
+
+
+def cached_layout(w, tag, build):
+    """``build(w)``, made once per weight tensor and ``tag`` and freed with
+    the weight: the table holds a weak reference to ``w`` beside the copy,
+    and a finalizer drops the entry when ``w`` is collected."""
+    key = id(w)
+    hit = _LAYOUTS.get(key)
+    if hit is None or hit[0]() is not w:
+        hit = _LAYOUTS[key] = (weakref.ref(w), {})
+        weakref.finalize(w, _LAYOUTS.pop, key, None)
+    if tag not in hit[1]:
+        hit[1][tag] = build(w)
+    return hit[1][tag]
 
 
 def _transposed(wq, Kp: int):
     """The weight codes as (N, Kp), k-contiguous and zero-padded along K —
     the layout the kernel's mma B operand reads. Built once per weight
-    tensor on the device and kept beside it (int8: the weights' own size
-    again)."""
-    key = (wq.data_ptr(), tuple(wq.shape))
-    hit = _WT.get(key)
-    if hit is not None and hit[0] is wq:
-        return hit[1]
-    K, N = wq.shape
-    wt = torch.zeros((N, Kp), dtype=torch.int8, device=wq.device)
-    wt[:, :K] = wq.t()
-    _WT[key] = (wq, wt)
-    return wt
+    tensor on the device and kept while the weight lives (int8: the
+    weights' own size again)."""
+    def build(w):
+        K, N = w.shape
+        wt = torch.zeros((N, Kp), dtype=torch.int8, device=w.device)
+        wt[:, :K] = w.t()
+        return wt
+    return cached_layout(wq, ("int8", Kp), build)
 
 
 def _need(t, name, dtype, shape, dev):
@@ -77,22 +90,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
-            stats, nm, gr, bv, bits, out_dtype):
+def check_operands(x, scale_shape, s_a, s_b, scale_a, scale_b, corr, bias,
+                   g, ps, stats, nm, gr, bv, out_dtype):
+    """Validate what every fused linear takes besides its weights: x, the
+    (G, 1) activation steps, the scale (and corr) stacks of
+    ``scale_shape`` = (G, ..., N), bias, the group and the optional
+    fusions. Returns the fusion tensors in the launchers' order (mu, rsig,
+    shift, scale, gate, residual; None where a fusion is off)."""
     M, K = x.shape
-    N = wq.shape[1]
-    G = scale_a.shape[0]
+    G, N = scale_shape[0], scale_shape[-1]
     dev = x.device
     f32, i32 = (torch.float32,), (torch.int32,)
     _need(x, "x", tuple(_DT), (M, K), dev)
-    _need(wq, "wq", (torch.int8,), (K, N), dev)
     for nm_, t in (("s_a", s_a), ("s_b", s_b)):
         _need(t, nm_, f32, (G, 1), dev)
-    _need(scale_a, "scale_a", f32, (G, N), dev)
-    if mrq:
-        _need(scale_b, "scale_b", f32, (G, N), dev)
+    _need(scale_a, "scale_a", f32, scale_shape, dev)
+    if scale_b is not None:
+        _need(scale_b, "scale_b", f32, scale_shape, dev)
     else:
-        _need(corr, "corr", i32, (G, N), dev)
+        _need(corr, "corr", i32, scale_shape, dev)
     _need(bias, "bias", f32, (N,), dev)
     if not 0 <= g < G:
         raise ValueError(f"group {g} outside [0, {G})")
@@ -112,6 +128,18 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
         gate, res = gr
         _need(gate, "gate", f32, (gate.shape[0], N), dev)
         _need(res, "residual", tuple(_DT), (M, N), dev)
+    return mu, rsig, sh, sc, gate, res
+
+
+def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
+            stats, nm, gr, bv, bits, out_dtype):
+    M, K = x.shape
+    N = wq.shape[1]
+    dev = x.device
+    _need(wq, "wq", (torch.int8,), (K, N), dev)
+    mu, rsig, sh, sc, gate, res = check_operands(
+        x, (scale_a.shape[0], N), s_a, s_b, scale_a, scale_b, corr, bias, g,
+        ps, stats, nm, gr, bv, out_dtype)
     Kp = -_BK * (-K // _BK)
     wt = _transposed(wq, Kp)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -120,7 +148,7 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     err = so.int8_matmul_launch(
         x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
-        _group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
+        group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
         _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
         codes[0].data_ptr(), codes[-1].data_ptr(), M, K, Kp, N,
         2 ** (bits - 1), _DT[x.dtype],
@@ -132,7 +160,7 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     return out
 
 
-def _prep(x, nm, gr, bias, N):
+def prep(x, nm, gr, bias, N):
     stats = ref.layernorm_stats(x) if nm is not None else None
     if bias is None:
         bias = torch.zeros((N,), dtype=torch.float32, device=x.device)
@@ -169,7 +197,7 @@ def int8_matmul_fq(x, wq, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
                    out_dtype=torch.float32):
     """B1 (see the module docstring). CUDA tensors launch the kernel, CPU
     tensors take the plain version."""
-    stats, bias, nm, gr = _prep(x, nm, gr, bias, wq.shape[1])
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
     if _k.use_kernel(x):
         return _launch(False, x.contiguous(), wq, sx, zx, scale, None, corr,
                        bias, g, ps, stats, nm, gr, bv, bits, out_dtype)
@@ -182,7 +210,7 @@ def int8_matmul_mrq_fq(x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=None,
                        g=0, *, ps=None, nm=None, gr=None, bv=None, bits=8,
                        out_dtype=torch.float32):
     """B2 (see the module docstring)."""
-    stats, bias, nm, gr = _prep(x, nm, gr, bias, wq.shape[1])
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
     if _k.use_kernel(x):
         return _launch(True, x.contiguous(), wq, s_neg, s_pos, scale_neg,
                        scale_pos, None, bias, g, ps, stats, nm, gr, bv,

@@ -1,16 +1,19 @@
 """Serving-path kernel wrappers and the pack builders — port of the
-scalar-group, byte-code part of ``repro/kernels/ops.py``.
+scalar-group part of ``repro/kernels/ops.py``.
 
 ``convert_for_kernels`` turns calibrated qparams plus fp weights into the
-packs ``QuantContext(kernel=True)`` dispatches on: an ``int8`` pack per
-plain/TGQ-uniform linear (-> B1 ``int8_matmul_fq``), an ``int8_mrq`` pack
-per MRQ-signed-input linear (-> B2 ``int8_matmul_mrq_fq``), and the
-``int8_qk`` / ``int8_pv`` packs per attention block (-> B3
-``flash_attn_mrq``). Activation-side parameters are stacked along a
-leading (G,) TGQ group axis; the kernels read the group's row themselves.
+packs ``QuantContext(kernel=True)`` dispatches on (``LINEAR_PACKS``): per
+plain/TGQ-uniform linear an ``int8`` pack at 8 or 6 bits (-> B1
+``int8_matmul_fq``) or an ``int4`` pack at 4 bits (-> B4
+``int4_matmul_fq``); per MRQ-signed-input linear an ``int8_mrq`` (-> B2
+``int8_matmul_mrq_fq``) or ``int4_mrq`` pack (-> B5
+``int4_matmul_mrq_fq``); and the ``int8_qk`` / ``int8_pv`` packs per
+attention block (-> B3 ``flash_attn_mrq``, packed kv at 4 bits: B3b).
+Activation-side parameters are stacked along a leading (G,) TGQ group
+axis; the kernels read the group's row themselves.
 
-Not ported yet (later slices, ROADMAP queue 1): the int4 packs, the
-per-row ``_vec`` dispatch and the composed attention chain.
+Not ported yet (later slices, ROADMAP queue 1): the per-row ``_vec``
+dispatch and the composed attention chain.
 """
 from __future__ import annotations
 
@@ -22,8 +25,21 @@ from repro_torch.core.quantizers import (
     ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
 )
 from repro_torch.kernels.flash_attn_mrq import flash_attn_mrq
+from repro_torch.kernels.int4_packed import (
+    int4_matmul_fq, int4_matmul_mrq_fq,
+)
 from repro_torch.kernels.int8_fused import int8_matmul_fq, int8_matmul_mrq_fq
+from repro_torch.kernels.ref import _ceil, pack_int4
 from repro_torch.quant.groups import resolve_group
+
+# The linear packs, in dispatch order: (pack key, wrapper in this module,
+# kernel it launches). ``QuantContext.linear`` and the artifact's
+# ``fallback_ops`` / ``packed_counts`` all read this one list.
+LINEAR_PACKS = (("int8", "int8_linear", "int8_matmul_fq"),
+                ("int8_mrq", "int8_linear_mrq", "int8_matmul_mrq_fq"),
+                ("int4", "int4_linear", "int4_matmul_fq"),
+                ("int4_mrq", "int4_linear_mrq", "int4_matmul_mrq_fq"))
+INT4_GROUP_K = 256       # the largest K group of the int4 packs
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +148,90 @@ def pack_int8_mrq_linear(qp: Dict[str, Any], w) -> Optional[dict]:
     return pack
 
 
+def _int4_group_codes(wq_q: ChannelQ, w) -> Optional[tuple]:
+    """(codes3 (nk, group_k, N) int8 in [-7, 7], sw (nk, N) f32, group_k)
+    or None if not a packable 2D linear. The calibrated per-channel scale
+    is superseded by a per-(K group, channel) absmax / 7, group_k =
+    min(256, K rounded up to a multiple of 8)."""
+    w = torch.as_tensor(w).float()
+    sw_cal = torch.as_tensor(wq_q.scale).float().reshape(-1)
+    if w.ndim != 2 or sw_cal.shape[0] != w.shape[-1]:
+        return None
+    K, N = w.shape
+    group_k = min(INT4_GROUP_K, _ceil(K))
+    Kp = -group_k * (-K // group_k)
+    nk = Kp // group_k
+    w3 = torch.nn.functional.pad(w, (0, 0, 0, Kp - K)).reshape(nk, group_k, N)
+    sw = torch.clamp(w3.abs().amax(dim=1), min=1e-8) / 7.0
+    codes3 = torch.clamp(torch.round(w3 / sw[:, None, :]), -7, 7
+                         ).to(torch.int8)
+    return codes3, sw, group_k
+
+
+def pack_int4_linear(qp: Dict[str, Any], w) -> Optional[dict]:
+    """Pack one linear (``UniformQ`` / ``TGQ(UniformQ)`` input,
+    ``ChannelQ`` weight, 4 bits) for B4: nibble-packed weights, scale and
+    corr of shape (G, nk, N)."""
+    xq_q, is_tgq = _unwrap_tgq(qp.get("x"))
+    if not isinstance(xq_q, UniformQ) or not isinstance(qp.get("w"), ChannelQ):
+        return None
+    wq_q: ChannelQ = qp["w"]
+    if wq_q.bits != 4 or xq_q.bits != 4:
+        return None
+    try:
+        sx = _stack_param(xq_q.scale, is_tgq)
+        zx = _stack_param(xq_q.zero, is_tgq)
+    except ValueError:
+        return None
+    ps = _prescale_vec(qp, w)
+    gc = _int4_group_codes(wq_q, _balanced_w(w, ps))
+    if gc is None:
+        return None
+    codes3, sw, group_k = gc
+    N = codes3.shape[-1]
+    colsum = codes3.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    z_eff = torch.round(zx).to(torch.int32) - 8
+    pack = {"wp": pack_int4(codes3.reshape(-1, N)), "sx": sx, "zx": zx,
+            "scale": sx[:, :, None] * sw[None],
+            "corr": z_eff[:, :, None] * colsum[None],
+            "groups": int(sx.shape[0]), "group_k": int(group_k),
+            "k": int(w.shape[0]), "bits": 4}
+    if ps is not None:
+        pack["x_prescale"] = ps
+    return pack
+
+
+def pack_int4_mrq_linear(qp: Dict[str, Any], w) -> Optional[dict]:
+    """Pack an MRQ-signed-input linear (post-GELU fc2) for B5:
+    nibble-packed weights, per-region scales of shape (G, nk, N)."""
+    xq_q, is_tgq = _unwrap_tgq(qp.get("x"))
+    if not isinstance(xq_q, MRQSignedQ) or not isinstance(
+            qp.get("w"), ChannelQ):
+        return None
+    wq_q: ChannelQ = qp["w"]
+    if wq_q.bits != 4 or xq_q.bits != 4:
+        return None
+    try:
+        s_neg = _stack_param(xq_q.s_neg, is_tgq)
+        s_pos = _stack_param(xq_q.s_pos, is_tgq)
+    except ValueError:
+        return None
+    ps = _prescale_vec(qp, w)
+    gc = _int4_group_codes(wq_q, _balanced_w(w, ps))
+    if gc is None:
+        return None
+    codes3, sw, group_k = gc
+    N = codes3.shape[-1]
+    pack = {"wp": pack_int4(codes3.reshape(-1, N)), "s_neg": s_neg,
+            "s_pos": s_pos, "scale_neg": s_neg[:, :, None] * sw[None],
+            "scale_pos": s_pos[:, :, None] * sw[None],
+            "groups": int(s_neg.shape[0]), "group_k": int(group_k),
+            "k": int(w.shape[0]), "bits": 4}
+    if ps is not None:
+        pack["x_prescale"] = ps
+    return pack
+
+
 def _broadcast_groups(*cols):
     G = max(int(c.shape[0]) for c in cols)
     out = []
@@ -185,20 +285,23 @@ def pack_int8_pv(qp: Dict[str, Any]) -> Optional[dict]:
             "groups": G, "bits": int(xq_q.bits)}
 
 
+_BUILDERS = {"int8": pack_int8_linear, "int8_mrq": pack_int8_mrq_linear,
+             "int4": pack_int4_linear, "int4_mrq": pack_int4_mrq_linear}
+
+
 def convert_for_kernels(qparams: Dict[str, dict],
                         weights: Dict[str, Any]) -> Dict[str, dict]:
-    """Adds an ``int8`` / ``int8_mrq`` pack to every eligible linear and an
-    ``int8_qk`` / ``int8_pv`` pack to every eligible attention einsum.
-    4-bit recipes get no linear pack here (the int4 family is a later
-    slice), so their linears show up in ``fallback_ops()``."""
+    """Adds the first linear pack of ``LINEAR_PACKS`` that fits (``int8``
+    / ``int8_mrq`` at 8 or 6 bits, ``int4`` / ``int4_mrq`` at 4 bits) to
+    every eligible linear and an ``int8_qk`` / ``int8_pv`` pack (bits 8,
+    6 or 4) to every eligible attention einsum."""
     out = {}
     for name, qp in qparams.items():
         qp = dict(qp)
         if name in weights:
             w = torch.as_tensor(weights[name])
-            for key, builder in (("int8", pack_int8_linear),
-                                 ("int8_mrq", pack_int8_mrq_linear)):
-                pack = builder(qp, w)
+            for key, _, _ in LINEAR_PACKS:
+                pack = _BUILDERS[key](qp, w)
                 if pack is not None:
                     qp[key] = pack
                     break
@@ -279,9 +382,42 @@ def int8_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
     return y.reshape(shape[:-1] + (pack["wq"].shape[1],))
 
 
+def int4_linear(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
+                norm_mod=None, gate_residual=None):
+    """Packed-int4 serving linear (B4): nibble weights, per-K-group
+    dequant into an f32 accumulator."""
+    out_dtype = out_dtype or x.dtype
+    shape = x.shape
+    xm = x.reshape(-1, shape[-1])
+    y = int4_matmul_fq(
+        xm, pack["wp"], pack["sx"], pack["zx"], pack["scale"], pack["corr"],
+        bias=None if bias is None else bias.float(),
+        g=_group_index(pack, tgroup), group_k=pack["group_k"],
+        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
+                                              gate_residual))
+    return y.reshape(shape[:-1] + (pack["wp"].shape[1],))
+
+
+def int4_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
+                    norm_mod=None, gate_residual=None):
+    """Packed-int4 MRQ-input serving linear (B5): one nibble-weight
+    traversal, two region accumulators, per-K-group dequant."""
+    out_dtype = out_dtype or x.dtype
+    shape = x.shape
+    xm = x.reshape(-1, shape[-1])
+    y = int4_matmul_mrq_fq(
+        xm, pack["wp"], pack["s_neg"], pack["s_pos"], pack["scale_neg"],
+        pack["scale_pos"], bias=None if bias is None else bias.float(),
+        g=_group_index(pack, tgroup), group_k=pack["group_k"],
+        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
+                                              gate_residual))
+    return y.reshape(shape[:-1] + (pack["wp"].shape[1],))
+
+
 def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                     scale=1.0, tgroup=None, out_dtype=None):
-    """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3).
+    """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3;
+    at 4 bits with packed kv, B3b).
 
     q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd). Returns
     (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale."""
@@ -295,10 +431,11 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     qf = q.permute(0, 2, 3, 1, 4).reshape(BHG, Sq, hd)
     kf = k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
+    bits = int(qk_pack.get("bits", 8))
     out = flash_attn_mrq(
         qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
         qk_pack["scale"] * torch.tensor(scale, dtype=torch.float32),
         pv_pack["s1"], pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"],
         g_qk=_group_index(qk_pack, tgroup), g_pv=_group_index(pv_pack, tgroup),
-        bits=int(qk_pack.get("bits", 8)), out_dtype=out_dtype)
+        bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
     return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)

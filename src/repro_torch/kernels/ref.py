@@ -1,7 +1,9 @@
 """Plain PyTorch oracles for the serving-path kernels, and the port's
 tolerance registry.
 
-Torch ports of the main-path entries of ``repro/kernels/ref.py``. Each
+Torch ports of the serving-path entries of ``repro/kernels/ref.py`` (the
+byte-code and packed-int4 linears, flash attention) and of the nibble
+helpers of ``repro/kernels/int4_packed.py``. Each
 ``*_ref`` computes exactly what the corresponding kernel must produce, op
 for op and rounding step for rounding step (``torch.round`` rounds half
 to even as ``jnp.round`` does; every multiply and add is its own torch
@@ -34,21 +36,39 @@ TOLERANCES = {
                              "and plain version"),
     "B2_vs_plain": (0.0, "as B1: disjoint sign-split codes, two exact s32 "
                     "accumulators, per-step rounding in the epilogue"),
+    "B4_vs_plain": (0.0, "as B1, and each K group's s32 partial is "
+                    "corrected, scaled and added into the f32 accumulator "
+                    "in the plain version's order (ascending groups, one "
+                    "rounding per step, no split-K)"),
+    "B5_vs_plain": (0.0, "as B4 with B2's two exact region partials, "
+                    "added as acc + (pn*sn + pp*sp) per group"),
+    "B3_vs_plain": (0.0, "the plain version replays the kernel's "
+                    "per-tile recurrence op for op, sums each tile's rows "
+                    "in the kernel's order (tile_rowsum) and uses the same "
+                    "exp (the card's expf through torch.exp); codes and "
+                    "integer P.V sums are then identical"),
+    "B3b_vs_B3": (0.0, "packed kv holds the same 4-bit codes two per "
+                  "byte; the kernel widens them before the same "
+                  "arithmetic, so only the storage differs"),
     "B3_flipped_row_rate": (0.02, "rowsum(e) over each 128-wide kv tile is "
-                            "summed in another order by the kernel (per "
-                            "thread, then warp shuffles) than by torch.sum "
-                            "(and by XLA): l' differs by an ulp, so rho and "
-                            "every accumulator of the row differ by ulps "
-                            "(not counted: below 1e-5 x max|out| in f32, one "
-                            "bf16 ulp of max|out| in bf16), and now and then "
-                            "a probability code on a .5 boundary flips; at "
-                            "most 2% of output rows may carry a flip"),
+                            "summed by XLA (the JAX oracle) in another "
+                            "order than by the port (``tile_rowsum``, the "
+                            "kernel's order), and exp may differ by an ulp "
+                            "between libraries: l' differs by an ulp, so "
+                            "rho and every accumulator of the row differ by "
+                            "ulps (not counted: below 1e-5 x max|out| in "
+                            "f32, one bf16 ulp of max|out| in bf16), and now "
+                            "and then a probability code on a .5 boundary "
+                            "flips; at most 2% of output rows may carry a "
+                            "flip"),
     "B3_atol_steps": (2.0, "a flip moves an output by at most one coarse "
                       "region step x max|v code| (s2 * s_v * (half-1)); "
                       "bound: two such steps"),
     # port's plain version (CPU) vs JAX's ref (CPU)
     "B1_B2_plain_vs_jax": (0.0, "no norm_mod: same f32 ops, same rounding "
                            "(the jnp oracles run eagerly, op by op)"),
+    "B4_B5_plain_vs_jax": (0.0, "no norm_mod: the same group-ordered f32 "
+                           "accumulation op for op (eager jnp oracles)"),
     "B1_B2_norm_mod_plain_vs_jax_flip_rate": (
         1e-3, "torch and XLA sum the layernorm mean/var in different "
         "orders and differ in rsqrt by an ulp; a code sitting on a "
@@ -58,10 +78,44 @@ TOLERANCES = {
                                      "softmax, layernorm stats) flip a few "
                                      "codes; each flip moves an output by "
                                      "one quantization step"),
-    "dit_forward_kernel_vs_plain_rel": (5e-2, "full-width bf16 forward: "
-                                        "B3 code flips (see above) "
-                                        "propagate through 28 blocks"),
+    "dit_forward_kernel_vs_plain_rel": (0.0, "full-width forward on the "
+                                        "card: every kernel is bit-exact "
+                                        "against its plain version, and "
+                                        "the glue around them is the same "
+                                        "torch code"),
 }
+
+
+def pack_int4(codes, axis: int = 0):
+    """Signed 4-bit codes two per byte along ``axis``: rows ``2i`` and
+    ``2i + 1`` go to byte ``i``'s low and high nibble; an odd length is
+    padded with one zero row. int8 result, ``axis`` halved (rounded up)."""
+    c = torch.movedim(torch.as_tensor(codes), axis, 0).to(torch.int32)
+    if c.shape[0] % 2:
+        c = torch.cat([c, torch.zeros((1,) + c.shape[1:], dtype=c.dtype,
+                                      device=c.device)])
+    u = c & 0xF
+    byte = u[0::2] | (u[1::2] << 4)
+    byte = torch.where(byte > 127, byte - 256, byte).to(torch.int8)
+    return torch.movedim(byte, 0, axis)
+
+
+def nibble_split(packed):
+    """Packed int8 -> (low, high) sign-extended codes as int32:
+    ``((b & 0xF) ^ 8) - 8``."""
+    p = torch.as_tensor(packed).to(torch.int32)
+    return ((p & 0xF) ^ 8) - 8, (((p >> 4) & 0xF) ^ 8) - 8
+
+
+def unpack_int4(packed, k=None, axis: int = 0):
+    """Inverse of ``pack_int4`` (int8 codes); ``k`` trims the padding."""
+    p = torch.movedim(torch.as_tensor(packed), axis, 0)
+    lo, hi = nibble_split(p)
+    out = torch.stack([lo, hi], dim=1).reshape((2 * p.shape[0],)
+                                               + tuple(p.shape[1:]))
+    if k is not None:
+        out = out[:k]
+    return torch.movedim(out.to(torch.int8), 0, axis)
 
 
 def flash_flip_stats(out, ref):
@@ -130,6 +184,49 @@ def int8_matmul_mrq_fq_ref(x, wq, s_neg, s_pos, scale_neg, scale_pos,
     return y.to(out_dtype)
 
 
+def int4_matmul_fq_ref(x, wp, sx, zx, scale, corr, bias=None, g=0,
+                       group_k: int = 256, out_dtype=torch.float32):
+    """4-bit affine x codes against nibble-packed weights (Kp/2, N), with
+    the group-ordered f32 accumulation ``acc = acc + (partial - corr[g,
+    kg]) * scale[g, kg]``, kg ascending; scale/corr (G, nk, N)."""
+    M, K = x.shape
+    Kp = 2 * wp.shape[0]
+    xq = quantize_int8_ref(x.float(), sx[g][0], zx[g][0], bits=4)
+    xq = torch.nn.functional.pad(xq, (0, Kp - K))
+    w = unpack_int4(wp)
+    acc = torch.zeros((M, wp.shape[1]), dtype=torch.float32, device=x.device)
+    for kg in range(Kp // group_k):
+        sl = slice(kg * group_k, (kg + 1) * group_k)
+        partial = imatmul(xq[:, sl], w[sl])
+        acc = acc + ((partial - corr[g, kg][None, :]).float()
+                     * scale[g, kg][None, :])
+    if bias is not None:
+        acc = acc + bias[None, :].float()
+    return acc.to(out_dtype)
+
+
+def int4_matmul_mrq_fq_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                           bias=None, g=0, group_k: int = 256,
+                           out_dtype=torch.float32):
+    """4-bit MRQ sign-split codes against nibble-packed weights, per group
+    ``acc = acc + (pn * scale_neg[g, kg] + pp * scale_pos[g, kg])``."""
+    M, K = x.shape
+    Kp = 2 * wp.shape[0]
+    qn, qp = (torch.nn.functional.pad(c, (0, Kp - K)) for c in
+              mrq_codes_ref(x.float(), s_neg[g][0], s_pos[g][0], 8))
+    w = unpack_int4(wp)
+    acc = torch.zeros((M, wp.shape[1]), dtype=torch.float32, device=x.device)
+    for kg in range(Kp // group_k):
+        sl = slice(kg * group_k, (kg + 1) * group_k)
+        pn = imatmul(qn[:, sl], w[sl]).float()
+        pp = imatmul(qp[:, sl], w[sl]).float()
+        acc = acc + (pn * scale_neg[g, kg][None, :]
+                     + pp * scale_pos[g, kg][None, :])
+    if bias is not None:
+        acc = acc + bias[None, :].float()
+    return acc.to(out_dtype)
+
+
 def layernorm_stats(x, eps: float = 1e-6):
     """(mu, rsig) per row of x in f32 — the wrapper's prologue stats
     (mean, biased variance as the mean of squared deviations, rsqrt)."""
@@ -182,6 +279,26 @@ def int8_matmul_mrq_fq_fused_ref(x, wq, s_neg, s_pos, scale_neg, scale_pos,
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
 
 
+def int4_matmul_fq_fused_ref(x, wp, sx, zx, scale, corr, bias=None, g=0,
+                             ps=None, nm=None, gr=None, bv=None,
+                             group_k: int = 256, out_dtype=torch.float32,
+                             stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int4_matmul_fq_ref(xf, wp, sx, zx, scale, corr, bias=bias, g=g,
+                           group_k=group_k)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
+def int4_matmul_mrq_fq_fused_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                                 bias=None, g=0, ps=None, nm=None, gr=None,
+                                 bv=None, group_k: int = 256,
+                                 out_dtype=torch.float32, stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int4_matmul_mrq_fq_ref(xf, wp, s_neg, s_pos, scale_neg, scale_pos,
+                               bias=bias, g=g, group_k=group_k)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -195,13 +312,32 @@ def _ceil(x, to=8):
     return max(to, -to * (-x // to))
 
 
+def tile_rowsum(e):
+    """Row sums of one kv tile (..., n <= 128) in the CUDA kernel's order:
+    the tile is 128 lanes (masked lanes add 0); lane ``8 nt + 2 t + c`` of
+    a row belongs to thread t of four, which adds its 32 lanes in order
+    (nt, then c), and the four partial sums meet in two warp shuffles as
+    ``(p0 + p1) + (p2 + p3)``. A float sum's value depends on its order,
+    and a code on a .5 boundary flips with it."""
+    e = torch.nn.functional.pad(e, (0, 128 - e.shape[-1]))
+    t = e.reshape(e.shape[:-1] + (16, 4, 2)).transpose(-3, -2)
+    t = t.reshape(e.shape[:-1] + (4, 32))
+    p = t[..., 0]
+    for i in range(1, 32):
+        p = p + t[..., i]
+    return ((p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3]))[..., None]
+
+
 def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
-                   bn: int = 128, out_dtype=torch.float32):
+                   bn: int = 128, out_dtype=torch.float32,
+                   packed_kv: bool = False):
     """The flash kernel's per-kv-tile recurrence over (B, S, hd) operands
     with per-call scalar params (0-d f32 tensors): int8 QK^T, NEG_INF on
     ragged lanes BEFORE the online max, running max/denominator, MRQ
     codes against the running normalisation, dual-region integer P·V with
-    the fp rescale ``rho = corr * l_prev / l_new``."""
+    the fp rescale ``rho = corr * l_prev / l_new``. ``packed_kv`` (4-bit):
+    the k and v codes go through the pack pre-pass (two per byte along
+    the head dim) and are widened again, as the kernel streams them."""
     B, M, D = q.shape
     N = k.shape[1]
     half = 2 ** (bits - 1)
@@ -212,6 +348,11 @@ def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
     q8 = sym_quantize_int8_ref(q, sq, bits)
     k8 = sym_quantize_int8_ref(pad(k), sk, bits)
     v8 = sym_quantize_int8_ref(pad(v), sv, bits)
+    if packed_kv:
+        if bits != 4:
+            raise ValueError("packed_kv streams nibbles: 4-bit codes only")
+        k8, v8 = (unpack_int4(pack_int4(c, axis=-1), D, axis=-1)
+                  for c in (k8, v8))
 
     dev = q.device
     m_run = torch.full((B, M, 1), _M_INIT, dtype=torch.float32, device=dev)
@@ -228,7 +369,7 @@ def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
         m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
         e = torch.exp(s - m_new)
         corr = torch.exp(m_run - m_new)
-        l_new = l_run * corr + e.sum(dim=-1, keepdim=True)
+        l_new = l_run * corr + tile_rowsum(e)
         p = e / l_new
         region1 = p < half * s1
         c1 = torch.where(region1, torch.clamp(torch.round(p / s1), 0,

@@ -2,15 +2,16 @@
 
 A request stream is coalesced into fixed-shape microbatches (step
 bucketed, padded, CFG-paired) and served by ``ServeEngine`` on one GPU;
-``--quantize w8a8 --calib range`` range-calibrates on the card and serves
-through the CUDA kernels (fused int8 linears, flash MRQ attention).
+``--quantize w8a8|w6a6|w4a4 --calib range`` range-calibrates on the card
+and serves through the CUDA kernels (w8a8 and w6a6: fused int8 linears and
+flash MRQ attention; w4a4: packed-int4 linears and packed-kv flash).
 
-  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w8a8 \\
+  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w4a4 \\
       --requests 8 --microbatch 4 --steps 20 --cfg-scale 1.5
 
 ``--smoke`` uses the tiny config; ``--device cpu`` runs the plain
 versions on the CPU. ``--load-artifact``/``--save-artifact``, ``--async``,
-``--dp``, w6a6/w4a4 and the LM branch wait for later slices.
+``--dp`` and the LM branch wait for later slices.
 """
 from __future__ import annotations
 
@@ -112,7 +113,8 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--cfg-scale", type=float, default=1.0)
-    ap.add_argument("--quantize", default="none", choices=("none", "w8a8"))
+    ap.add_argument("--quantize", default="none",
+                    choices=("none", "w8a8", "w6a6", "w4a4"))
     ap.add_argument("--calib", default="range", choices=("range",))
     ap.add_argument("--dump-samples", default=None, metavar="NPY")
     ap.add_argument("--device", default=None,

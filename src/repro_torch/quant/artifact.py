@@ -21,13 +21,13 @@ from repro_torch.core.quantizers import (
     ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import LINEAR_PACKS
 from repro_torch.quant.recipe import QuantRecipe
 
 ARTIFACT_VERSION = 1
 _ARTIFACT_JSON = "artifact.json"
 _QUANTIZERS = {c.__name__: c for c in
                (UniformQ, SymQ, ChannelQ, MRQSoftmaxQ, MRQSignedQ, TGQ)}
-_KERNEL_PACKS = ("int8", "int8_mrq", "int4", "int4_mrq")
 
 
 def _decode(spec: dict, leaves: List[Any]) -> Any:
@@ -63,7 +63,8 @@ class QuantArtifact:
 
     @property
     def has_kernel_packs(self) -> bool:
-        return any(any(p in qp for p in _KERNEL_PACKS + ("int8_qk", "int8_pv"))
+        keys = [k for k, _, _ in LINEAR_PACKS] + ["int8_qk", "int8_pv"]
+        return any(any(k in qp for k in keys)
                    for qp in self.qparams.values())
 
     def fallback_ops(self) -> List[str]:
@@ -78,18 +79,22 @@ class QuantArtifact:
             elif name.endswith("/pv"):
                 if "int8_pv" not in qp:
                     out.append(name)
-            elif "w" in qp and not any(p in qp for p in _KERNEL_PACKS):
+            elif "w" in qp and not any(k in qp for k, _, _ in LINEAR_PACKS):
                 out.append(name)
         return out
 
     def packed_counts(self) -> Dict[str, int]:
-        """Ops packed per serving kernel: {'int8_matmul_fq': n,
-        'int8_matmul_mrq_fq': n, 'flash_attn_mrq': n} (one launch each
-        per forward)."""
-        qp = self.qparams.values()
-        return {"int8_matmul_fq": sum("int8" in q for q in qp),
-                "int8_matmul_mrq_fq": sum("int8_mrq" in q for q in qp),
-                "flash_attn_mrq": sum("int8_qk" in q for q in qp)}
+        """Ops packed per serving kernel, keyed as ``kernels.LAUNCHES``
+        (one launch each per forward): a linear counts under its pack's
+        kernel, an attention block under ``flash_attn_mrq`` or, at 4 bits,
+        ``flash_attn_mrq_packed_kv``."""
+        counts = {kern: sum(key in qp for qp in self.qparams.values())
+                  for key, _, kern in LINEAR_PACKS}
+        qk = [qp["int8_qk"] for qp in self.qparams.values() if "int8_qk" in qp]
+        packed = sum(int(p.get("bits", 8)) == 4 for p in qk)
+        counts["flash_attn_mrq"] = len(qk) - packed
+        counts["flash_attn_mrq_packed_kv"] = packed
+        return counts
 
     def context(self, kernel: Optional[bool] = None,
                 attn_impl: Optional[str] = None):
@@ -145,8 +150,10 @@ class QuantArtifact:
         c = self.packed_counts()
         return (f"QuantArtifact({self.recipe.bits}/{self.recipe.method}: "
                 f"{len(self.qparams)} ops, "
-                f"{c['int8_matmul_fq'] + c['int8_matmul_mrq_fq']} int8 "
-                f"linear packs, {c['flash_attn_mrq']} int8 attention "
+                f"{c['int8_matmul_fq'] + c['int8_matmul_mrq_fq']} int8 and "
+                f"{c['int4_matmul_fq'] + c['int4_matmul_mrq_fq']} int4 "
+                f"linear packs, {c['flash_attn_mrq']} int8 and "
+                f"{c['flash_attn_mrq_packed_kv']} packed-kv attention "
                 f"blocks, G={self.meta.get('tgq_groups')})")
 
     @classmethod

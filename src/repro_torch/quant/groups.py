@@ -23,7 +23,7 @@ def resolve_group(g, n_groups: Optional[int] = None, *,
     if getattr(g, "ndim", 0) == 1:
         raise NotImplementedError(
             "vector tgroups arrive with the async serving slice "
-            "(ROADMAP queue 1, item 9)")
+            "(ROADMAP queue 1, item 8)")
     return min(max(int(g), 0), n_groups - 1)
 
 

@@ -85,7 +85,10 @@ def test_artifact_loads_with_every_leaf_equal(both):
         jart.dif_cfg())
     assert tart.packed_counts() == {"int8_matmul_fq": 13,
                                     "int8_matmul_mrq_fq": 2,
-                                    "flash_attn_mrq": 2}
+                                    "int4_matmul_fq": 0,
+                                    "int4_matmul_mrq_fq": 0,
+                                    "flash_attn_mrq": 2,
+                                    "flash_attn_mrq_packed_kv": 0}
     bad = dict(tp, pos=tp["pos"] + 1)
     with pytest.raises(ValueError, match="content hash mismatch"):
         tart.check_params(bad)

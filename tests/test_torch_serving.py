@@ -116,6 +116,17 @@ class _PinnedRecordingContext(RecordingContext):
 
 
 def test_range_calibrate_matches_jax_on_same_batches(tiny, monkeypatch):
+    _check_range_calibrate(tiny, monkeypatch, 8)
+
+
+@pytest.mark.parametrize("bits", [6, 4])
+def test_range_calibrate_low_bits_matches_jax(tiny, monkeypatch, bits):
+    """As at 8 bits; at 4 bits the packs are the int4 family's
+    (nibble-packed weights, per-K-group scales), compared leaf by leaf."""
+    _check_range_calibrate(tiny, monkeypatch, bits)
+
+
+def _check_range_calibrate(tiny, monkeypatch, bits):
     jcfg, jp, tcfg, tp = tiny
     dif = JDiffusionCfg(T=1000, tgq_groups=4)
     sched = jmake_schedule(dif)
@@ -123,6 +134,7 @@ def test_range_calibrate_matches_jax_on_same_batches(tiny, monkeypatch):
     monkeypatch.setattr(jquickcal, "RecordingContext",
                         _PinnedRecordingContext)
     want, _ = jquickcal.range_calibrate(jp, jcfg, dif, sched, key,
+                                        wbits=bits, abits=bits,
                                         n_per_group=2, batch=2, max_rows=64)
     # the same batches and capture range_calibrate builds internally
     x0 = lambda n, k: jax.random.normal(
@@ -136,11 +148,15 @@ def test_range_calibrate_matches_jax_on_same_batches(tiny, monkeypatch):
     for b, tg in calib:
         cal.begin_batch()
         loss(dataclasses.replace(cal, tgroup=tg), b)
-    got = derive_qparams(rec.registry, cal.store, cal.weights, 4, 8, 8)
+    got = derive_qparams(rec.registry, cal.store, cal.weights, 4, bits,
+                         bits)
     _assert_tree(_leaves(want), _leaves(got))
     # ... and packed for the kernels, every pack leaf equal too
-    _assert_tree(_leaves(jconvert(want, cal.weights)),
-                 _leaves(convert_for_kernels(got, cal.weights)))
+    jpacked = jconvert(want, cal.weights)
+    packed = convert_for_kernels(got, cal.weights)
+    _assert_tree(_leaves(jpacked), _leaves(packed))
+    family = "int4" if bits == 4 else "int8"
+    assert sum(family in qp for qp in packed.values()) == 13
 
     # the port's own capture (its forward, its contexts) of those batches
     tcalib = [({k: torch.from_numpy(np.asarray(v)).long() if k in ("t", "y")
@@ -149,7 +165,8 @@ def test_range_calibrate_matches_jax_on_same_batches(tiny, monkeypatch):
     own, _ = range_calibrate(tp, tcfg, DiffusionCfg(T=1000, tgq_groups=4),
                              make_schedule(DiffusionCfg(T=1000,
                                                         tgq_groups=4)),
-                             calib=tcalib, max_rows=64)
+                             calib=tcalib, wbits=bits, abits=bits,
+                             max_rows=64)
     _assert_tree(_leaves(want), _leaves(own), rtol=1e-5)
 
 
