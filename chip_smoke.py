@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
+and continuous-batching, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -15,11 +15,15 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              fusions, G = 10 at a nonzero group: B1/B2 (bits 8 and 6),
              B4/B5 (packed int4, K groups of 256 and x_proj's 16), B3
              (bits 8, 6 and 4) and B3b (packed kv, also held bit for bit
-             against unpacked B3); max error and mismatches against the
-             tolerance registry; kernel, plain-version and library-call
-             times (CUDA events) beside the least time the card could
-             take (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s,
-             fp32 at 67 TFLOP/s).
+             against unpacked B3); the per-row-group kernels B6a/B6b
+             (bits 8), B7a/B7b and B8 (bits 8, and 4 with packed kv) in
+             bf16 with a mixed group vector (one group per slot), each
+             also held bit for bit against its scalar kernel, with a
+             constant vector and group by group; max error and
+             mismatches against the tolerance registry; kernel,
+             plain-version and library-call times (CUDA events) beside
+             the least time the card could take (bytes at 3.35 TB/s,
+             int8 operations at 1979 TOP/s, fp32 at 67 TFLOP/s).
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -31,7 +35,17 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              finite samples, and launch counts (set to 0 before the serve,
              read after it) equal to ops packed per kernel x forwards, and
              holds one full-width forward on the kernels against the plain
-             versions.
+             versions. Then, with the same params and artifact, the
+             continuous-batching engine (``AsyncServeEngine``: microbatch
+             4, buckets (10, 20), chunk 4, pipeline 2, CFG 1.5) serves 12
+             requests alternating 10 and 20 steps; asserts every outcome
+             OK with no degradation or retry, samples equal to the sync
+             engine's bit for bit, ``*_vec`` launch counts (set to 0
+             before, read after) equal to ops packed per kernel x
+             forwards and no scalar launch, and one chunk dispatch run
+             under ``torch.cuda.set_sync_debug_mode("error")`` (the chunk
+             never blocks the host); prints ms/step and req/s (at W8A8
+             for pipeline 1 too).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -94,9 +108,41 @@ INT4_CASES = [  # run with the fusion and without it
 TIMED = {"int8_matmul_fq": "qkv", "int8_matmul_mrq_fq": "fc2",
          "int4_matmul_fq": "qkv", "int4_matmul_mrq_fq": "fc2"}
 MRQ = ("int8_matmul_mrq_fq", "int4_matmul_mrq_fq")
+VEC_CASES = [  # (op, M, K, N, fusion, scalar kernel, bits): B6a, B6b, B7a, B7b
+    ("qkv", 2048, 1152, 3456, "norm_mod", "int8_matmul_fq", 8),
+    ("fc2", 2048, 4608, 1152, "gate_residual", "int8_matmul_mrq_fq", 8),
+    ("qkv", 2048, 1152, 3456, "norm_mod", "int4_matmul_fq", 4),
+    ("fc2", 2048, 4608, 1152, "gate_residual", "int4_matmul_mrq_fq", 4),
+]
+SLOT_GROUPS = (3, 7, 0, 9, 3, 7, 0, 9)   # one TGQ group per CFG row (2B = 8)
 
 
-def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed):
+def slot_rows(n_rows, dev):
+    """The per-row group vector of a 2B = 8-row slot batch: each slot's
+    group over its n_rows / 8 batch-major rows."""
+    import torch
+    g = torch.tensor(SLOT_GROUPS, dtype=torch.int32, device=dev)
+    return g[:, None].expand(8, n_rows // 8).reshape(n_rows).contiguous()
+
+
+def check_vec_against_scalar(name, out, vec_run, scalar_run, gv, g0):
+    """A vec kernel bit for bit against its scalar kernel: a constant
+    vector at group g0, and each group of ``gv`` over its own rows."""
+    import torch
+    const = vec_run(torch.full_like(gv, g0))
+    n_const = int((const != scalar_run(g0)).sum())
+    n_split = 0
+    for h in sorted(set(gv.tolist())):
+        rows = gv == h
+        n_split += int((out[rows] != scalar_run(h)[rows]).sum())
+    log(f"  {name} vs its scalar kernel: constant vector {n_const} and "
+        f"per-group split {n_split} differing outputs (registry "
+        f"vec_vs_scalar_kernel: 0.0)")
+    if n_const or n_split:
+        raise AssertionError(f"{name} differs from its scalar kernel")
+
+
+def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed, vec=False):
     import torch
 
     from repro_torch import kernels
@@ -155,6 +201,12 @@ def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed):
           "int8_matmul_mrq_fq": F8.int8_matmul_mrq_fq,
           "int4_matmul_fq": F4.int4_matmul_fq,
           "int4_matmul_mrq_fq": F4.int4_matmul_mrq_fq}[kern]
+    name = kern
+    if vec:                                # per-row groups, one per slot
+        scalar_fn, fn, name = fn, getattr(F8 if not int4 else F4,
+                                          kern + "_vec"), kern + "_vec"
+        gv = slot_rows(M, dev)
+        args = args[:-1] + (gv,)
     run = lambda: fn(*args, out_dtype=dt, **kw)
     out = run()
     with kernels.plain_on_cuda():
@@ -166,13 +218,19 @@ def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed):
            else "B1_vs_plain", "int8_matmul_mrq_fq": "B2_vs_plain",
            "int4_matmul_fq": "B4_vs_plain",
            "int4_matmul_mrq_fq": "B5_vs_plain"}[kern]
+    if vec:
+        key = "vec_vs_plain"
     tol = TOLERANCES[key][0]
-    log(f"kernel {kern} op={op} M={M} K={K} N={N} {fusion or 'plain'} "
+    log(f"kernel {name} op={op} M={M} K={K} N={N} {fusion or 'plain'} "
         f"{str(dt)[6:]} bits={bits}: max_abs_err={max_err} "
         f"mismatches={n_bad}/{err.numel()} (registry {key}: {tol})")
     if max_err > tol:
-        raise AssertionError(f"{kern} {op} bits={bits} {dt}: max error "
+        raise AssertionError(f"{name} {op} bits={bits} {dt}: max error "
                              f"{max_err} > {tol}")
+    if vec:
+        check_vec_against_scalar(
+            name, out, lambda v: fn(*args[:-1], v, out_dtype=dt, **kw),
+            lambda h: scalar_fn(*args[:-1], h, out_dtype=dt, **kw), gv, g)
     row = {"max_abs_err": max_err}
     if timed:
         row["ms"] = time_ms(run, 50)
@@ -182,23 +240,24 @@ def linear_case(op, M, K, N, fusion, kern, bits, dt, gen, timed):
         wk = wq[:K].contiguous()           # the widened s8 codes
         row["library_ms"] = time_ms(lambda: torch._int_mm(xq, wk), 50)
         esz = x.element_size()
-        # x, weights (nibbles at 4 bits), the group's scale (+ corr) rows,
-        # bias, out
+        # x, weights (nibbles at 4 bits), the group's scale (+ corr) rows
+        # (vec: every group's, and the (M,) group vector), bias, out
         nbytes = (M * K * esz + (K * N // 2 if int4 else K * N)
-                  + nk * N * 4 * 2 + N * 4 + M * N * esz)
+                  + (G if vec else 1) * nk * N * 4 * 2 + N * 4
+                  + M * N * esz + (M * 4 if vec else 0))
         if fusion == "norm_mod":
             nbytes += M * 8 + 2 * B * K * 4 + M * 4
         if fusion == "gate_residual":
             nbytes += B * N * 4 + M * N * esz + M * 4
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 2 * M * K * N * (2 if kern in MRQ else 1))
-        log(f"  time {kern} op={op}: kernel {row['ms']:.4f} ms, plain "
+        log(f"  time {name} op={op}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, torch._int_mm {row['library_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
-def flash_case(bits, dt, gen, timed, packed_kv=False):
+def flash_case(bits, dt, gen, timed, packed_kv=False, vec=False):
     import torch
 
     from repro_torch import kernels
@@ -219,13 +278,21 @@ def flash_case(bits, dt, gen, timed, packed_kv=False):
                      1.0 / half)
     s_v = rate * (4.0 / (half - 1))
     args = (q, k, v, s_q, s_k, qk, s1, s_v, s1 * s_v, s_v * (1.0 / half), 4, 6)
-    run = lambda: FA.flash_attn_mrq(*args, bits=bits, packed_kv=packed_kv,
-                                    out_dtype=dt)
+    kw = dict(bits=bits, packed_kv=packed_kv, out_dtype=dt)
+    run = lambda: FA.flash_attn_mrq(*args, **kw)
+    if vec:                    # per batch·head row: its slot's group
+        gq = slot_rows(BH, dev)
+        run = lambda: FA.flash_attn_mrq_vec(*args[:-2], gq, gq, **kw)
     out = run()
     with kernels.plain_on_cuda():
         ref = run()
-    name = "flash_attn_mrq_packed_kv" if packed_kv else "flash_attn_mrq"
-    if packed_kv:                          # B3b == unpacked B3, bit for bit
+    name = ("flash_attn_mrq" + ("_vec" if vec else "")
+            + ("_packed_kv" if packed_kv else ""))
+    if vec:
+        check_vec_against_scalar(
+            name, out, lambda v: FA.flash_attn_mrq_vec(*args[:-2], v, v, **kw),
+            lambda h: FA.flash_attn_mrq(*args[:-2], h, h, **kw), gq, 4)
+    elif packed_kv:                        # B3b == unpacked B3, bit for bit
         unpacked = FA.flash_attn_mrq(*args, bits=bits, out_dtype=dt)
         n_diff = int((out != unpacked).sum())
         log(f"kernel {name} vs unpacked flash_attn_mrq {str(dt)[6:]}: "
@@ -236,10 +303,11 @@ def flash_case(bits, dt, gen, timed, packed_kv=False):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     max_err, n_bad = float(err.max()), int((err > 0).sum())
-    tol = TOLERANCES["B3_vs_plain"][0]
+    key = "vec_vs_plain" if vec else "B3_vs_plain"
+    tol = TOLERANCES[key][0]
     log(f"kernel {name} BH={BH} S={S} hd={D} {str(dt)[6:]} "
         f"bits={bits}: max_abs_err={max_err} mismatches={n_bad}/"
-        f"{out.numel()} (registry B3_vs_plain: {tol})")
+        f"{out.numel()} (registry {key}: {tol})")
     if max_err > tol:
         raise AssertionError(f"{name} bits={bits} {dt}: max error "
                              f"{max_err} > {tol}")
@@ -253,7 +321,10 @@ def flash_case(bits, dt, gen, timed, packed_kv=False):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: sdpa(qb, kb, vb), 50)
         esz = q.element_size()
-        nbytes = 4 * BH * S * D * esz + 7 * 4
+        # q, k, v, out; the group's 7 params (vec: every group's, and the
+        # (2BH,) group vector)
+        nbytes = (4 * BH * S * D * esz + 7 * 4 * (G if vec else 1)
+                  + (2 * BH * 4 if vec else 0))
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 3 * 2 * BH * S * S * D,
             SOFTMAX_FP32_PER_SCORE * BH * S * S)
@@ -289,6 +360,15 @@ def phase_kernels():
         rows["flash_attn_mrq"].append({"max_abs_err": b3_4bit["max_abs_err"]})
         rows.setdefault("flash_attn_mrq_packed_kv", []).append(
             flash_case(4, dt, gen, bf16, packed_kv=True))
+    # the per-row-group kernels of the continuous-batching path, bf16
+    for op, M, K, N, fusion, kern, bits in VEC_CASES:
+        rows[kern + "_vec"] = [linear_case(op, M, K, N, fusion, kern, bits,
+                                           torch.bfloat16, gen, True,
+                                           vec=True)]
+    rows["flash_attn_mrq_vec"] = [flash_case(8, torch.bfloat16, gen, True,
+                                             vec=True)]
+    rows["flash_attn_mrq_vec_packed_kv"] = [flash_case(
+        4, torch.bfloat16, gen, True, packed_kv=True, vec=True)]
     merged = {}
     for name, rs in rows.items():
         m = next(r for r in rs if "ms" in r).copy()
@@ -388,7 +468,8 @@ def serve_width(bits):
     if samples.shape != want_shape or not np.isfinite(samples).all():
         raise AssertionError(f"bad {bits} samples {samples.shape}")
     forwards = engine.stats["microbatches"] * steps
-    want = {k: n * forwards for k, n in art.packed_counts().items()}
+    want = {k: 0 for k in launches}
+    want.update({k: n * forwards for k, n in art.packed_counts().items()})
     log(f"full width {bits}: packed per forward {art.packed_counts()}, "
         f"forwards {forwards}, launches {launches}")
     if launches != want:
@@ -417,6 +498,110 @@ def serve_width(bits):
         f"rel L2 {rel:.3e} (registry {tol})")
     if not rel <= tol:
         raise AssertionError(f"{bits} forward rel error {rel} > {tol}")
+    return launches, cfg, params, art
+
+
+def vec_key(kern):
+    """The LAUNCHES key of a scalar kernel's per-row-group sibling."""
+    if kern.startswith("flash_attn_mrq"):
+        return kern.replace("flash_attn_mrq", "flash_attn_mrq_vec")
+    return kern + "_vec"
+
+
+def serve_async(bits, cfg, params, art):
+    """The continuous-batching engine at full width, on ``serve_width``'s
+    params and artifact (no new calibration)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving.batching import GenRequest, coalesce
+    from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
+
+    n_req = 12
+    gen = torch.Generator().manual_seed(11)
+    labels = torch.randint(0, cfg.n_classes, (n_req,), generator=gen)
+    reqs = [GenRequest(request_id=i, label=int(labels[i]),
+                       steps=(10, 20)[i % 2], cfg_scale=1.5, seed=500 + i)
+            for i in range(n_req)]
+    kw = dict(microbatch=4, step_buckets=(10, 20), device="cuda")
+    # engines besides the main run skip from_artifact's params hash
+    same = (params, cfg, art.dif_cfg())
+    sync = ServeEngine(*same, ctx=art.context(), **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = sync.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    f = sum(mb.steps for mb in coalesce(reqs, 4, (10, 20)))    # forwards
+    log(f"sync {bits} on the same {n_req} requests: {dt:.3f} s, "
+        f"{n_req / dt:.4f} req/s, {dt / f * 1e3:.3f} ms/step over {f} "
+        f"forwards ({sync.stats['padded_slots']} padded slots)")
+    launches = None
+    for pipeline in (2, 1) if bits == "w8a8" else (2,):
+        eng = (AsyncServeEngine.from_artifact(params, art, chunk=4,
+                                              pipeline=2, **kw)
+               if pipeline == 2 else
+               AsyncServeEngine(*same, ctx=art.context(), chunk=4,
+                                pipeline=1, **kw))
+        torch.cuda.synchronize()
+        if pipeline == 2:
+            kernels.reset_launches()       # the async path's run starts here
+        t0 = time.perf_counter()
+        out = eng.serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if pipeline == 2:
+            launches = dict(kernels.LAUNCHES)      # ... and ends here
+        st = eng.stats
+        bad = {r: (o.status, o.error) for r, o in out.items()
+               if o.status != "OK"}
+        if bad or st["degradations"] or st["retries"]:
+            raise AssertionError(f"async {bits}: not OK {bad}, degradations "
+                                 f"{st['degradations']}, retries "
+                                 f"{st['retries']}")
+        n_diff = sum(not np.array_equal(o.sample, ref[r].sample)
+                     for r, o in out.items())
+        if len(out) != n_req or n_diff:
+            raise AssertionError(f"async {bits} pipeline {pipeline}: "
+                                 f"{n_diff} samples differ from the sync "
+                                 "engine's")
+        f = st["forwards"]
+        log(f"async {bits} pipeline={pipeline}: {n_req} requests (10/20 "
+            f"steps, chunk 4, microbatch 4, cfg 1.5) in {dt:.3f} s: "
+            f"{n_req / dt:.4f} req/s, {dt / f * 1e3:.3f} ms/step over "
+            f"{f} forwards ({st['dispatches']} dispatches, {st['ahead']} "
+            f"of them dispatched ahead; the 180 slot-steps asked fill "
+            f"{180 / (4 * f):.3f} of the forwards' slot rows); samples "
+            "equal the sync engine's bit for bit")
+        if pipeline == 2:
+            want = {k: 0 for k in launches}
+            for k, n in art.packed_counts().items():
+                want[vec_key(k)] = n * f
+            log(f"async {bits}: launches {launches}")
+            if launches != want:
+                raise AssertionError(f"async {bits} launch counts "
+                                     f"{launches} != packed x forwards "
+                                     f"{want}")
+    # one chunk dispatch with host synchronisation made an error
+    eng = AsyncServeEngine(*same, ctx=art.context(), chunk=4, pipeline=1,
+                           **kw)
+    for r in reqs[:4]:
+        eng.submit_request(r)
+    eng._admit()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, pos, bad = eng._chunk_fn(eng._x, eng._pos, eng._bk, eng._y,
+                                    eng._seeds, eng._gs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if pos.tolist() != [4] * 4 or bool(bad.any()):
+        raise AssertionError(f"async {bits} chunk: pos {pos.tolist()}, "
+                             f"bad {bad.tolist()}")
+    log(f"async {bits}: one chunk (4 steps x 4 slots) dispatched under "
+        "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
     return launches
 
 
@@ -425,8 +610,12 @@ def phase_serve():
 
     total = {}
     for bits in WIDTHS:
-        for k, n in serve_width(bits).items():
+        launches, cfg, params, art = serve_width(bits)
+        for k, n in launches.items():
             total[k] = total.get(k, 0) + n
+        for k, n in serve_async(bits, cfg, params, art).items():
+            total[k] = total.get(k, 0) + n
+        del params, art
         torch.cuda.empty_cache()
     return total
 
@@ -461,6 +650,8 @@ def main() -> int:
 
     flash = ("src/repro_torch/csrc/flash_attn_mrq.cu",
              "src/repro/kernels/flash_attn_mrq.py:292")
+    flash_vec = ("src/repro_torch/csrc/flash_attn_mrq.cu",
+                 "src/repro/kernels/flash_attn_mrq.py:401")
     sources = {"int8_matmul_fq": ("src/repro_torch/csrc/int8_fused.cu",
                                   "src/repro/kernels/int8_fused.py:355"),
                "int8_matmul_mrq_fq": ("src/repro_torch/csrc/int8_fused.cu",
@@ -470,7 +661,19 @@ def main() -> int:
                "int4_matmul_fq": ("src/repro_torch/csrc/int4_packed.cu",
                                   "src/repro/kernels/int4_packed.py:244"),
                "int4_matmul_mrq_fq": ("src/repro_torch/csrc/int4_packed.cu",
-                                      "src/repro/kernels/int4_packed.py:365")}
+                                      "src/repro/kernels/int4_packed.py:365"),
+               "int8_matmul_fq_vec": ("src/repro_torch/csrc/int8_fused.cu",
+                                      "src/repro/kernels/int8_fused.py:583"),
+               "int8_matmul_mrq_fq_vec": (
+                   "src/repro_torch/csrc/int8_fused.cu",
+                   "src/repro/kernels/int8_fused.py:691"),
+               "int4_matmul_fq_vec": ("src/repro_torch/csrc/int4_packed.cu",
+                                      "src/repro/kernels/int4_packed.py:473"),
+               "int4_matmul_mrq_fq_vec": (
+                   "src/repro_torch/csrc/int4_packed.cu",
+                   "src/repro/kernels/int4_packed.py:589"),
+               "flash_attn_mrq_vec": flash_vec,
+               "flash_attn_mrq_vec_packed_kv": flash_vec}
     idle = [k for k in sources if not launches.get(k)]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -8,7 +8,12 @@
 - ``QuantContext``       — applies the calibrated quantizers: fake-quant
   by default, or (``kernel=True``) the packed linears through the CUDA
   kernels B1/B2 (8 and 6 bits) and B4/B5 (4 bits), and whole attention
-  blocks through B3 (B3b at 4 bits).
+  blocks through B3 (B3b at 4 bits). Its ``tgroup`` is a scalar TGQ
+  group, or a per-slot (B,) device tensor from the continuous-batching
+  sampler: then every seam (``linear``, ``einsum``, ``act``,
+  ``attention``) takes each slot's own group — the ``*_vec`` kernels
+  B6a/B6b/B7a/B7b/B8 with kernels, a per-slot gather of the quantizer
+  leaves without.
 
 Provenance uses tensor identity: ``act(name, x, kind)`` marks ``id(x)`` so
 the directly consuming matmul knows its operand's distribution. The
@@ -180,8 +185,11 @@ class QuantContext(OpContext):
     B1, ``int8_mrq`` -> B2, ``int4`` -> B4, ``int4_mrq`` -> B5) and
     attention blocks whose ``/qk`` and ``/pv`` qparams carry ``int8_qk`` /
     ``int8_pv`` packs through B3 (``attn_impl`` 'flash'; the composed
-    chain is a later slice). Ops without a pack take the fake-quant path
-    (``QuantArtifact.fallback_ops`` lists them)."""
+    chain is a later slice and raises ``NotImplementedError``, which the
+    async engine's degradation ladder steps past). A vector ``tgroup``
+    reaches the ``_vec`` siblings of those kernels. Ops without a pack
+    take the fake-quant path (``QuantArtifact.fallback_ops`` lists
+    them)."""
     qparams: Dict[str, dict] = dataclasses.field(default_factory=dict)
     kernel: bool = False
     attn_impl: str = "flash"

@@ -129,11 +129,14 @@ ARRAY_FIELDS = {UniformQ: ("scale", "zero"), SymQ: ("scale",),
 @dataclasses.dataclass
 class TGQ:
     """Time-grouped wrapper: ``inner`` holds a quantizer whose array
-    fields are stacked (G, ...); ``select(g)`` takes group g."""
+    fields are stacked (G, ...); ``select(g)`` takes group g, or gathers
+    (B, ...) rows for a (B,) group tensor."""
     inner: Any
 
-    def select(self, g: int):
+    def select(self, g):
         fields = ARRAY_FIELDS[type(self.inner)]
+        if isinstance(g, torch.Tensor):
+            g = g.long()
         return dataclasses.replace(
             self.inner, **{f: getattr(self.inner, f)[g] for f in fields})
 
@@ -143,17 +146,25 @@ class TGQ:
 
 
 def apply_quantizer(q, x, tgroup=None):
-    """Applies q to x, selecting the TGQ group (scalar groups only: the
-    per-slot vector path belongs to the async serving slice)."""
+    """Applies q to x, selecting the TGQ group.
+
+    ``tgroup`` may be a per-slot (B,) tensor (the continuous-batching
+    path): each stacked (G,) leaf gathers to (B,) and is reshaped to
+    broadcast along x's leading batch axis, so slot b's rows take slot b's
+    group — the fake-quant twin of the ``*_vec`` kernels' per-row
+    gather."""
     if q is None:
         return x
     if isinstance(q, TGQ):
         if tgroup is None:
             tgroup = 0
-        if getattr(tgroup, "ndim", 0) == 1:
-            raise NotImplementedError(
-                "vector tgroups arrive with the async serving slice "
-                "(ROADMAP queue 1, item 8)")
+        if isinstance(tgroup, torch.Tensor) and tgroup.ndim == 1:
+            B = tgroup.shape[0]
+            sel = q.select(tgroup)
+            fields = ARRAY_FIELDS[type(sel)]
+            return dataclasses.replace(sel, **{
+                f: getattr(sel, f).reshape((B,) + (1,) * (x.ndim - 1))
+                for f in fields})(x)
         return q(x, int(tgroup))
     return q(x)
 

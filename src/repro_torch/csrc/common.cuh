@@ -10,6 +10,14 @@
 // per-K-group scales). The int8 family passes gk = gkp = Kq: one group,
 // c = k. Columns past K, and the padding of each group, get code 0.
 //
+// Groups: g points at device int32 group indices read with a row stride
+// gs: gs = 0 reads g[0] for every row (one TGQ group per call: B1, B2,
+// B4, B5), gs = 1 reads g[row] (a per-row group vector: the _vec kernels
+// B6a, B6b, B7a, B7b of the continuous-batching slot pool). Every read
+// goes through group_at, which clamps the index into [0, G): an entry of
+// a caller's vector outside the stacks' G groups reads the nearest group,
+// never memory past the stacks.
+//
 // Exactness: rintf (round half to even, as torch.round / jnp.round),
 // __fdiv_rn (IEEE divide), __fmul_rn/__fadd_rn (each step rounds; built
 // with -fmad=false as well), in the reference's op order.
@@ -28,7 +36,14 @@ struct QArgs {
   int8_t* qa; int8_t* qb;                      // (M, Kq) codes
   int M, K, Kq, half;
   int gk, gkp;                                 // see the header comment
+  int gs;                                      // group stride: 0 or 1
+  int G;                                       // groups in s_a, s_b
 };
+
+// The group of row i: g[i * gs], clamped into [0, G).
+__device__ __forceinline__ int group_at(const int* g, long i, int gs, int G) {
+  return min(max(g[i * gs], 0), G - 1);
+}
 
 __device__ __forceinline__ float ldx(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
@@ -39,13 +54,14 @@ __device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
 // Affine:  c = clip(rint(x'/s_a[g]) + s_b[g] - half, -half, half-1).
 // MRQ:     region a (x' < 0): clip(rint(x'/s_a[g]), -half, 0);
 //          region b (x' >= 0): clip(rint(x'/s_b[g]), 0, half-1).
+// with g = group_at(g, row, gs, G).
 template <bool MRQ, typename TX>
 __global__ void quantize_kernel(QArgs a) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const int words = a.Kq / 4;
   if (i >= (long)a.M * words) return;
   const int row = (int)(i / words), c4 = (int)(i % words) * 4;
-  const int grp = *a.g;
+  const int grp = group_at(a.g, row, a.gs, a.G);
   const float qa = a.s_a[grp], qb = a.s_b[grp];
   const float fhalf = (float)a.half;
   const TX* x = static_cast<const TX*>(a.x);

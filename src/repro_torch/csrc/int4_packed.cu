@@ -1,7 +1,9 @@
-// Packed-int4 fused linears for Hopper (sm_90a): kernels B4 and B5.
+// Packed-int4 fused linears for Hopper (sm_90a): kernels B4 and B5, and
+// their per-row-group siblings B7a and B7b.
 //
 // Replaces the Pallas kernels repro/kernels/int4_packed.py::int4_matmul_fq
-// (B4) and ::int4_matmul_mrq_fq (B5). Weights are signed 4-bit codes, two
+// (B4), ::int4_matmul_mrq_fq (B5), ::int4_matmul_fq_vec (B7a) and
+// ::int4_matmul_mrq_fq_vec (B7b). Weights are signed 4-bit codes, two
 // per byte along K, with one scale per (K group of group_k rows, output
 // channel); activations are 4-bit codes (half = 8):
 //
@@ -14,6 +16,11 @@
 //   y = acc + bias, then the optional epilogue res + gate[b] * y;
 //   prologue (optional) as B1: x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b],
 //   / ps.
+//   B7a/B7b (VEC): g = gv[row], a per-row (M,) int32 group vector: the
+//   quantize pass reads each row's steps (csrc/common.cuh, gs = 1) and
+//   each K-group rescale reads scale[gv[row], kg, col] (and corr) per
+//   accumulator element, where B4/B5 read one value per column. Each
+//   thread's four rows look their groups up once, before the K loop.
 //
 // What bounds it on the card: at the DiT-XL/2 serving shapes the s8
 // products are compute-bound on the tensor cores (1979 TOP/s int8 dense);
@@ -64,6 +71,7 @@ struct G4Args {
   const int* corr; const float* bias; const int* g;
   const int* bv; const float* gate; const void* res; void* out;
   int M, N, Kq, nk, tpg, ntiles, res_bf16, out_bf16;
+  int G;                                       // groups in the stacks
   // tpg: k tiles per group; ntiles: k tiles holding any code of x
 };
 
@@ -75,7 +83,7 @@ __device__ __forceinline__ void widen_b(unsigned w, unsigned& b0, unsigned& b1) 
   b1 = __byte_perm(lo, hi, 0x7362);
 }
 
-template <bool MRQ>
+template <bool MRQ, bool VEC>
 __global__ void __launch_bounds__(THREADS) gemm4_kernel(G4Args a) {
   constexpr int R = MRQ ? 2 : 1;
   constexpr int ATILE = BM * SROW, BTILE = BN * WROW;
@@ -124,7 +132,17 @@ __global__ void __launch_bounds__(THREADS) gemm4_kernel(G4Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.f;
 
-  const int grp = *a.g;
+  // the group of each of this thread's accumulator rows (VEC), or the
+  // call's one group
+  const int grp = VEC ? 0 : group_at(a.g, 0, 0, a.G);
+  int grow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * MT * 16 + mt * 16 + gid + h * 8;
+      grow[mt][h] = VEC ? group_at(a.g, row < M ? row : M - 1, 1, a.G) : grp;
+    }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nkt) load(s, s * BK);
@@ -171,15 +189,21 @@ __global__ void __launch_bounds__(THREADS) gemm4_kernel(G4Args a) {
         for (int c = 0; c < 2; ++c) {
           const int col = n0 + wn * 32 + nt * 8 + tig * 2 + c;
           if (col >= N) continue;
-          const long gc = ((long)grp * a.nk + kg) * N + col;
-          const float sa = a.scale_a[gc];
-          const float sb = MRQ ? a.scale_b[gc] : 0.f;
-          const int cr = MRQ ? 0 : a.corr[gc];
+          long gc = ((long)grp * a.nk + kg) * N + col;
+          float sa = a.scale_a[gc];
+          float sb = MRQ ? a.scale_b[gc] : 0.f;
+          int cr = MRQ ? 0 : a.corr[gc];
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int e = h * 2 + c;
+              if (VEC) {              // this row's group: scale[gv[row], kg, col]
+                gc = ((long)grow[mt][h] * a.nk + kg) * N + col;
+                sa = a.scale_a[gc];
+                sb = MRQ ? a.scale_b[gc] : 0.f;
+                cr = MRQ ? 0 : a.corr[gc];
+              }
               float t;
               if (!MRQ) {
                 t = __fmul_rn((float)((acc[0][mt][nt][e] >> 4) - cr), sa);
@@ -224,18 +248,23 @@ __global__ void __launch_bounds__(THREADS) gemm4_kernel(G4Args a) {
       }
 }
 
-template <bool MRQ, typename TX>
+template <bool MRQ, bool VEC, typename TX>
 cudaError_t run(const QArgs& q, G4Args g, cudaStream_t s) {
   cudaError_t e = launch_quantize<MRQ, TX>(q, s);
   if (e != cudaSuccess) return e;
   constexpr int R = MRQ ? 2 : 1;
   const size_t smem = (size_t)STAGES * (R * BM * SROW + BN * WROW);
-  e = cudaFuncSetAttribute(gemm4_kernel<MRQ>,
+  e = cudaFuncSetAttribute(gemm4_kernel<MRQ, VEC>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  gemm4_kernel<MRQ><<<grid, THREADS, smem, s>>>(g);
+  gemm4_kernel<MRQ, VEC><<<grid, THREADS, smem, s>>>(g);
   return cudaGetLastError();
+}
+
+template <bool MRQ, bool VEC>
+cudaError_t run_x(const QArgs& q, const G4Args& g, int x_bf16, cudaStream_t s) {
+  return x_bf16 ? run<MRQ, VEC, __nv_bfloat16>(q, g, s) : run<MRQ, VEC, float>(q, g, s);
 }
 
 }  // namespace
@@ -244,6 +273,8 @@ cudaError_t run(const QArgs& q, G4Args g, cudaStream_t s) {
 // group of gk rows zero-padded to gkp/2 bytes, each 16-byte chunk in the
 // fragment order above; Kq = nk * gkp, gkp % 64 == 0.
 // codes_a/codes_b: (M, Kq) int8 scratch allocated by the caller.
+// g: device int32 group index (gs = 0) or per-row (M,) vector (gs = 1),
+// each clamped into [0, G) on the device.
 extern "C" int int4_matmul_launch(
     const void* x, const void* wt, const void* s_a, const void* s_b,
     const void* scale_a, const void* scale_b, const void* corr,
@@ -251,9 +282,11 @@ extern "C" int int4_matmul_launch(
     const void* mu, const void* rsig, const void* sh, const void* sc,
     const void* gate, const void* res, void* out, void* codes_a,
     void* codes_b, int M, int K, int Kq, int N, int gk, int gkp, int nk,
-    int x_bf16, int res_bf16, int out_bf16, int mrq, void* stream) {
+    int x_bf16, int res_bf16, int out_bf16, int mrq, int gs, int G,
+    void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || gk <= 0 || gk % 2 || gkp < gk
-      || gkp % BK || Kq != nk * gkp || nk * gk < K || (nk - 1) * gk >= K)
+      || gkp % BK || Kq != nk * gkp || nk * gk < K || (nk - 1) * gk >= K
+      || (gs != 0 && gs != 1) || G <= 0)
     return (int)cudaErrorInvalidValue;
   QArgs q;
   q.x = x; q.s_a = static_cast<const float*>(s_a); q.s_b = static_cast<const float*>(s_b);
@@ -262,7 +295,7 @@ extern "C" int int4_matmul_launch(
   q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
   q.sc = static_cast<const float*>(sc);
   q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
-  q.M = M; q.K = K; q.Kq = Kq; q.half = 8; q.gk = gk; q.gkp = gkp;
+  q.M = M; q.K = K; q.Kq = Kq; q.half = 8; q.gk = gk; q.gkp = gkp; q.gs = gs; q.G = G;
   G4Args a;
   a.qa = q.qa; a.qb = q.qb; a.wt = static_cast<const int8_t*>(wt);
   a.scale_a = static_cast<const float*>(scale_a);
@@ -273,10 +306,10 @@ extern "C" int int4_matmul_launch(
   a.M = M; a.N = N; a.Kq = Kq; a.nk = nk; a.tpg = gkp / BK;
   // code columns up to the last real row of the last group
   a.ntiles = ((nk - 1) * gkp + (K - (nk - 1) * gk) + BK - 1) / BK;
-  a.res_bf16 = res_bf16; a.out_bf16 = out_bf16;
+  a.res_bf16 = res_bf16; a.out_bf16 = out_bf16; a.G = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);
-  else e = x_bf16 ? run<false, __nv_bfloat16>(q, a, s) : run<false, float>(q, a, s);
+  if (mrq) e = gs ? run_x<true, true>(q, a, x_bf16, s) : run_x<true, false>(q, a, x_bf16, s);
+  else e = gs ? run_x<false, true>(q, a, x_bf16, s) : run_x<false, false>(q, a, x_bf16, s);
   return (int)e;
 }

@@ -1,7 +1,9 @@
-// Fused int8 linears for Hopper (sm_90a): kernels B1 and B2.
+// Fused int8 linears for Hopper (sm_90a): kernels B1 and B2, and their
+// per-row-group siblings B6a and B6b.
 //
 // Replaces the Pallas kernels repro/kernels/int8_fused.py::int8_matmul_fq
-// (B1) and ::int8_matmul_mrq_fq (B2):
+// (B1), ::int8_matmul_mrq_fq (B2), ::int8_matmul_fq_vec (B6a) and
+// ::int8_matmul_mrq_fq_vec (B6b):
 //
 //   B1: y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1) @ wq)
 //            - corr[g]) * scale[g] + bias
@@ -10,6 +12,13 @@
 //       y = (qn @ wq) * scale_neg[g] + (qp @ wq) * scale_pos[g] + bias
 //   prologue (optional): x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b], / ps
 //   epilogue (optional): y = res + gate[b] * y
+//   B6a/B6b: the same with g = gv[row], a per-row (M,) int32 group vector
+//   (gs = 1; B1/B2 pass gs = 0 and read gv[0]): each row quantizes with
+//   its group's steps and dequantizes with its group's scale (and corr)
+//   row, gathered from the full (G, .) stacks. One launch serves a batch
+//   whose rows sit at different TGQ groups, and the weights stream once;
+//   the per-row read adds one L1-resident int32 load per output element
+//   to the epilogue and one per quantized word.
 //
 // What bounds it on the card: at the DiT-XL/2 serving shapes (M = 2048,
 // K, N = 1152..6912) the s8 products are compute-bound on the tensor cores
@@ -52,6 +61,8 @@ struct GArgs {          // gemm_kernel
   const int* corr; const float* bias; const int* g;
   const int* bv; const float* gate; const void* res; void* out;
   int M, N, Kp, res_bf16, out_bf16;
+  int gs;               // group stride: 0 (B1, B2) or 1 per row (B6a, B6b)
+  int G;                // groups in the scale (and corr) stacks
 };
 
 template <bool MRQ>
@@ -137,7 +148,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
   }
 
   // -- epilogue: dequant (+ bias) (+ gate * y + residual), one write ------
-  const int grp = *a.g;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -147,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
         const int row = m0 + wm * 64 + mt * 16 + gid + (e >> 1) * 8;
         const int col = n0 + wn * 32 + nt * 8 + tig * 2 + (e & 1);
         if (row >= M || col >= N) continue;
-        const long gc = (long)grp * N + col;
+        const long gc = (long)group_at(a.g, row, a.gs, a.G) * N + col;
         float y;
         if (!MRQ) {
           const int v = acc[0][mt][nt][e] - a.corr[gc];
@@ -187,6 +197,8 @@ cudaError_t run(const QArgs& q, GArgs g, cudaStream_t s) {
 
 // codes_a/codes_b: (M, Kp) int8 scratch allocated by the caller; wt: the
 // weights transposed to (N, Kp), zero-padded along K; Kp % 64 == 0.
+// g: device int32 group index (gs = 0) or per-row (M,) vector (gs = 1),
+// each clamped into [0, G) on the device.
 extern "C" int int8_matmul_launch(
     const void* x, const void* wt, const void* s_a, const void* s_b,
     const void* scale_a, const void* scale_b, const void* corr,
@@ -194,8 +206,10 @@ extern "C" int int8_matmul_launch(
     const void* mu, const void* rsig, const void* sh, const void* sc,
     const void* gate, const void* res, void* out, void* codes_a,
     void* codes_b, int M, int K, int Kp, int N, int half, int x_bf16,
-    int res_bf16, int out_bf16, int mrq, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % BK) return (int)cudaErrorInvalidValue;
+    int res_bf16, int out_bf16, int mrq, int gs, int G, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % BK || (gs != 0 && gs != 1)
+      || G <= 0)
+    return (int)cudaErrorInvalidValue;
   QArgs q;
   q.x = x; q.s_a = static_cast<const float*>(s_a); q.s_b = static_cast<const float*>(s_b);
   q.g = static_cast<const int*>(g); q.ps = static_cast<const float*>(ps);
@@ -203,7 +217,7 @@ extern "C" int int8_matmul_launch(
   q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
   q.sc = static_cast<const float*>(sc);
   q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
-  q.M = M; q.K = K; q.Kq = Kp; q.half = half; q.gk = Kp; q.gkp = Kp;
+  q.M = M; q.K = K; q.Kq = Kp; q.half = half; q.gk = Kp; q.gkp = Kp; q.gs = gs; q.G = G;
   GArgs a;
   a.qa = q.qa; a.qb = q.qb; a.wt = static_cast<const int8_t*>(wt);
   a.scale_a = static_cast<const float*>(scale_a);
@@ -212,6 +226,7 @@ extern "C" int int8_matmul_launch(
   a.g = q.g; a.bv = q.bv; a.gate = static_cast<const float*>(gate);
   a.res = res; a.out = out;
   a.M = M; a.N = N; a.Kp = Kp; a.res_bf16 = res_bf16; a.out_bf16 = out_bf16;
+  a.gs = gs; a.G = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);

@@ -1,10 +1,14 @@
-"""DDPM substrate for serving — port of the sync-serving part of
+"""DDPM substrate for serving — port of the serving part of
 ``repro/diffusion/ddpm.py``: schedules, the forward process, respacing,
-TGQ group lookup and the CFG-paired per-request-key sampler.
+TGQ group lookup, the CFG-paired per-request-key sampler, and the
+slot-wise chunked sampler of the continuous-batching engine
+(``make_slot_schedule``, ``ddpm_init_latent``, ``ddpm_chunk_slots``).
 
-PyTorch runs eagerly, so the reference's ``lax.scan`` is a Python loop;
-the timestep and its TGQ group are host ints, and every kernel reads the
-group's parameters on the device.
+PyTorch runs eagerly, so the reference's ``lax.scan`` is a Python loop.
+In the sync sampler the timestep and its TGQ group are host ints; in the
+chunked sampler every slot's position, timestep and group are device
+tensors and nothing in a chunk reads the device from the host. Every
+kernel reads its group's parameters on the device.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.diffusion import rng
 from repro_torch.nn.ctx import FPContext
 
@@ -87,8 +92,11 @@ def respaced_schedule(sched, use_ts: np.ndarray):
             "post_logvar": f(np.log(np.maximum(post_var, 1e-20)))}
 
 
-def tgroup_of(t: int, T: int, G: int) -> int:
-    """TGQ group g(t) = floor(t*G/T), clamped to [0, G)."""
+def tgroup_of(t, T: int, G: int):
+    """TGQ group g(t) = floor(t*G/T), clamped to [0, G): an int for an
+    int ``t``, an int32 tensor (on t's device) for a tensor of timesteps."""
+    if isinstance(t, torch.Tensor):
+        return torch.clamp((t * G) // T, 0, G - 1).to(torch.int32)
     return min(max((int(t) * G) // T, 0), G - 1)
 
 
@@ -103,6 +111,23 @@ def _f(v):
     return np.float32(v)
 
 
+def step_coefs(rs, idx: int):
+    """The update coefficients of respaced index ``idx`` as f32 host
+    scalars ``(sqrt(1 - abar), 1 / sqrt(abar), c0, c1, sqrt(post_var))``:
+    ``x0 = (x - s1m * eps) * inv_sa``, ``mean = c0 * x0 + c1 * x``,
+    ``x = mean + sv * noise``. Both samplers take them from here, so both
+    round alike on every device: numpy's f32 sqrt is correctly rounded
+    (torch's CPU sqrt is not always), and x0 multiplies by the f32
+    reciprocal, which is what PyTorch's CUDA kernels compute for a
+    division by a host scalar (the reference divides)."""
+    abar, abar_prev = _f(rs["abar"][idx]), _f(rs["abar_prev"][idx])
+    beta, alpha = _f(rs["betas"][idx]), _f(rs["alphas"][idx])
+    return (np.sqrt(_f(1) - abar), _f(1) / np.sqrt(abar),
+            np.sqrt(abar_prev) * beta / (_f(1) - abar),
+            np.sqrt(alpha) * (_f(1) - abar_prev) / (_f(1) - abar),
+            np.sqrt(_f(rs["post_var"][idx])))
+
+
 def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
                        seeds, guidance, *, null_label: int,
                        steps: Optional[int] = None, ctx=_FP, device=None):
@@ -113,8 +138,9 @@ def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
     the model through ``ctx.with_tgroup``.
 
     y: (B,) labels; seeds: (B,) ints; guidance: (B,) CFG scales.
-    Returns (B, H, W, C) float32 samples."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    Returns (B, H, W, C) float32 samples on ``device`` (default
+    ``"cuda"``; raises where CUDA is absent)."""
+    dev = resolve_device(device)
     steps = steps or cfg.T
     use_ts = respaced_timesteps(cfg.T, steps)
     rs = respaced_schedule(sched, use_ts)
@@ -141,14 +167,119 @@ def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
         eps_c, eps_u = eps2[:B], eps2[B:]
         eps = eps_u + gsc * (eps_c - eps_u)
 
-        abar, abar_prev = _f(rs["abar"][idx]), _f(rs["abar_prev"][idx])
-        beta, alpha = _f(rs["betas"][idx]), _f(rs["alphas"][idx])
-        x0 = (x - float(np.sqrt(_f(1) - abar)) * eps) / float(np.sqrt(abar))
-        c0 = float(np.sqrt(abar_prev) * beta / (_f(1) - abar))
-        c1 = float(np.sqrt(alpha) * (_f(1) - abar_prev) / (_f(1) - abar))
+        s1m, inv_sa, c0, c1, sv = map(float, step_coefs(rs, idx))
+        x0 = (x - s1m * eps) * inv_sa
         mean = c0 * x0 + c1 * x
         if idx > 0:
-            x = mean + float(np.sqrt(_f(rs["post_var"][idx]))) * draw(i)
+            x = mean + sv * draw(i)
         else:
             x = mean
     return x
+
+
+# ---------------------------------------------------------------------------
+# slot-wise chunked sampler (continuous batching)
+# ---------------------------------------------------------------------------
+_SLOT_FIELDS = ("sqrt_1m_abar", "inv_sqrt_abar", "c0", "c1",
+                "sqrt_post_var")
+
+
+def make_slot_schedule(cfg: DiffusionCfg, sched, step_buckets, device=None):
+    """Stacked per-bucket schedules for :func:`ddpm_chunk_slots`, as device
+    tensors: per configured bucket (ascending) one row of ``use_ts``
+    (descending original-chain timesteps) and of each update coefficient
+    of :func:`step_coefs` (ascending respaced index), padded to the
+    longest bucket; ``n_of`` holds each bucket's chain length. Padding
+    cells are never gathered: a slot's index is clamped into its chain.
+    The coefficients are the sync sampler's own f32 host values, so the
+    two samplers' updates agree bit for bit."""
+    dev = resolve_device(device)
+    buckets = tuple(sorted(int(b) for b in step_buckets))
+    uts = [respaced_timesteps(cfg.T, b) for b in buckets]
+    rss = [respaced_schedule(sched, u) for u in uts]
+    n_of = np.asarray([len(u) for u in uts], np.int64)
+    n_max = int(n_of.max())
+    use_ts = np.zeros((len(buckets), n_max), np.int64)
+    stk = {f: np.ones((len(buckets), n_max), np.float32)
+           for f in _SLOT_FIELDS}
+    for k, (u, rs) in enumerate(zip(uts, rss)):
+        use_ts[k, :len(u)] = u
+        for idx in range(len(u)):
+            for f, c in zip(_SLOT_FIELDS, step_coefs(rs, idx)):
+                stk[f][k, idx] = c
+    out = {"buckets": buckets, "n_of": torch.as_tensor(n_of, device=dev),
+           "use_ts": torch.as_tensor(use_ts, device=dev)}
+    out.update({f: torch.as_tensor(stk[f], device=dev) for f in _SLOT_FIELDS})
+    return out
+
+
+def ddpm_init_latent(seed: int, n: int, sshape, device=None):
+    """The initial latent of :func:`ddpm_sample_paired` for one request:
+    ``normal(fold_in(PRNGKey(seed), n))`` with ``n`` the request's
+    respaced chain length (default device ``"cuda"``)."""
+    dev = resolve_device(device)
+    return rng.normal(rng.fold_in(rng.PRNGKey(int(seed), device=dev), n),
+                      tuple(sshape))
+
+
+def ddpm_chunk_slots(eps_fn: Callable, cfg: DiffusionCfg, slot_sched, x,
+                     pos, bk, y, seeds, guidance, *, null_label: int,
+                     chunk: int, ctx=_FP, device=None):
+    """Advance every slot ``chunk`` denoising steps from its OWN position.
+
+    ``x[b]`` is slot b's latent, ``pos[b]`` its scan position in bucket
+    ``bk[b]``'s respaced chain (``slot_sched`` from
+    :func:`make_slot_schedule`); a slot with ``pos >= n_of[bk]`` is
+    finished or free, and its latent and position pass through unchanged
+    (``torch.where`` gating). y, seeds (uint32 values as int64), guidance
+    and the slot state are (B,) device tensors.
+
+    Bit-identity contract: a slot's trajectory equals
+    :func:`ddpm_sample_paired` on its request alone — the same
+    ``fold_in(PRNGKey(seed), i)`` noise, the same CFG-paired forward
+    (conditional half stacked on the unconditional one) and the same f32
+    update operations in the same order on the same coefficients
+    (gathered per slot where the sync sampler has host scalars). Each step runs the model ONCE on
+    the 2B batch, the per-slot timesteps as a vector and the per-slot TGQ
+    groups as a (2B,) device vector through ``ctx.with_tgroup``, so the
+    ``*_vec`` kernels stream the weights once per step whatever mix of
+    timesteps the slots hold. Nothing here reads the device from the
+    host: a chunk only enqueues work.
+
+    ``device`` (default ``"cuda"``; raises where CUDA is absent) must be
+    the slot state's device. Returns ``(x, pos, bad)``; ``bad[b]`` flags a
+    non-finite value in slot b's latent, computed on the device.
+    """
+    dev = resolve_device(device)
+    if x.device.type != dev.type:
+        raise ValueError(f"slot state on {x.device}, expected {dev}")
+    S = slot_sched
+    B = x.shape[0]
+    bshape = (B,) + (1,) * (x.ndim - 1)
+    sshape = tuple(x.shape[1:])
+    n = S["n_of"][bk]                                 # (B,) chain lengths
+    yy = torch.cat([y, torch.full_like(y, null_label)])
+    gsc = guidance.reshape(bshape)
+    keys = rng.PRNGKey(seeds)
+    for _ in range(chunk):
+        run = pos < n
+        i = torch.minimum(pos, n - 1)                 # safe gather when done
+        idx = n - 1 - i                               # respaced index (asc)
+        t_orig = S["use_ts"][bk, i]                   # (B,) original-chain t
+        g = tgroup_of(t_orig, cfg.T, cfg.tgq_groups)
+        eps2 = eps_fn(torch.cat([x, x]), torch.cat([t_orig, t_orig]), yy,
+                      ctx.with_tgroup(torch.cat([g, g])))
+        eps_c, eps_u = eps2[:B], eps2[B:]
+        eps = eps_u + gsc * (eps_c - eps_u)
+
+        s1m, inv_sa, c0, c1, sv = (S[f][bk, idx].reshape(bshape)
+                                   for f in _SLOT_FIELDS)
+        x0 = (x - s1m * eps) * inv_sa
+        mean = c0 * x0 + c1 * x
+        noise = rng.normal(rng.fold_in(keys, i), sshape)
+        nonzero = (idx > 0).to(torch.float32).reshape(bshape)
+        xn = mean + nonzero * sv * noise
+        x = torch.where(run.reshape(bshape), xn, x)
+        pos = torch.where(run, pos + 1, pos)
+    bad = ~torch.isfinite(x.reshape(B, -1)).all(dim=1)
+    return x, pos, bad

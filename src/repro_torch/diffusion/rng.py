@@ -5,7 +5,9 @@ Reproduces ``jax.random`` under its default ``jax_threefry_partitionable
 ``normal(fold_in(PRNGKey(seed), i))`` bit for bit (the uint32 draws) and
 within a few ulps (the normals: ``erfinv`` is computed differently by
 torch and XLA). Keys are int64 tensors of shape (..., 2) holding uint32
-words; everything runs on whatever device the key lives on.
+words; everything runs on whatever device the key lives on, and nothing
+copies between host and device once the key (and any counter tensor)
+is there.
 """
 from __future__ import annotations
 
@@ -39,9 +41,13 @@ def threefry2x32(k1, k2, x1, x2):
 
 def PRNGKey(seed, device=None):
     """Key(s) from integer seed(s): [seed >> 32, seed & 0xFFFFFFFF] (a
-    32-bit seed has a zero high word). ``seed`` may be an int or a 1-D
-    integer array/tensor; returns (2,) or (B, 2)."""
-    s = torch.as_tensor(np.asarray(seed, dtype=np.int64), device=device)
+    32-bit seed has a zero high word). ``seed`` may be an int, a 1-D
+    integer array, or an integer tensor (kept on its device); returns
+    (2,) or (B, 2)."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(torch.int64)
+    else:
+        s = torch.as_tensor(np.asarray(seed, dtype=np.int64), device=device)
     return torch.stack([(s >> 32) & _M32, s & _M32], dim=-1)
 
 
@@ -76,9 +82,11 @@ def uniform(key, shape, minval, maxval):
     bits = random_bits(key, shape)
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # f32 bounds as host scalars (each op rounds in f32, as with 0-d f32
+    # tensors) so no value is copied to the device
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp(floats * span + lo, min=lo)
 
 
 _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

@@ -6,8 +6,10 @@ plain ``extern "C"`` interface (no PyTorch headers, so a build takes
 seconds), named after a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so a stale library is never loaded.
 ``build_all`` starts one ``nvcc`` per source, all at once. Libraries go
-to ``repro_torch/_build/`` (git-ignored). A failed build raises with the
-compiler's output; nothing falls back.
+to ``repro_torch/_build/`` (git-ignored). A failed build raises
+:class:`KernelError` with the compiler's output, and so does a launch that
+CUDA refuses; nothing falls back, and the serving engines never treat
+a ``KernelError`` as a fault to degrade around.
 
 Flags: ``sm_90a``; ``-fmad=false`` so no multiply-add contracts into an
 FMA (the reference rounds every step); no ``--use_fast_math``, so ``/``
@@ -35,10 +37,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel that could not be built or launched: no ``nvcc``, a failed
+    compile, or a CUDA error returned by a launcher."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+        raise KernelError("nvcc not found (PATH or /usr/local/cuda/bin): "
                            "the port's kernels are built on the GPU host")
     return path
 
@@ -73,7 +80,7 @@ def build_all(names=SOURCES) -> float:
             continue
         os.replace(tmp, out)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -82,18 +89,19 @@ _SIGNATURES = {
     "int8_fused": {
         # x wt s_a s_b scale_a scale_b corr bias g ps bv mu rsig sh sc gate
         # res out codes_a codes_b | M K Kp N half x_bf16 res_bf16 out_bf16
-        # mrq | stream
-        "int8_matmul_launch": [_P] * 20 + [_I] * 9 + [_P],
+        # mrq gs G | stream
+        "int8_matmul_launch": [_P] * 20 + [_I] * 11 + [_P],
     },
     "int4_packed": {
         # as int8_matmul_launch | M K Kq N gk gkp nk x_bf16 res_bf16
-        # out_bf16 mrq | stream
-        "int4_matmul_launch": [_P] * 20 + [_I] * 11 + [_P],
+        # out_bf16 mrq gs G | stream
+        "int4_matmul_launch": [_P] * 20 + [_I] * 13 + [_P],
     },
     "flash_attn_mrq": {
-        # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g out q8 k8 v8t |
-        # B M N D rep half packed_kv x_bf16 out_bf16 | stream
-        "flash_attn_mrq_launch": [_P] * 15 + [_I] * 9 + [_P],
+        # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g_qk g_pv out q8 k8
+        # v8t | B M N D rep half packed_kv x_bf16 out_bf16 vec Gq Gp |
+        # stream
+        "flash_attn_mrq_launch": [_P] * 16 + [_I] * 12 + [_P],
     },
 }
 
@@ -117,4 +125,4 @@ def check(err: int, name: str, what: str) -> None:
     runs, and ``torch.cuda.synchronize`` would not report it)."""
     if err != 0:
         msg = _LIBS[name].cuda_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+        raise KernelError(f"{what}: CUDA error {err} ({msg}) at launch")

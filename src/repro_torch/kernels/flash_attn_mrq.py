@@ -1,5 +1,6 @@
-"""Flash-style fused int8 MRQ attention (kernel B3, and B3b: its 4-bit
-packed-kv variant) — wrapper, plain version and launch counts.
+"""Flash-style fused int8 MRQ attention (kernel B3, B3b: its 4-bit
+packed-kv variant, and B8: both with per-batch-row groups) — wrappers,
+plain versions and launch counts.
 
 ``flash_attn_mrq`` replaces ``repro/kernels/flash_attn_mrq.py::
 flash_attn_mrq``: per (batch·head, q-tile), SymQ int8 QK^T dequantised by
@@ -20,6 +21,15 @@ codes are stored two per byte and widened by the kernel as it loads each
 tile — the same codes and arithmetic as unpacked 4-bit, half the kv code
 bytes; it counts under ``LAUNCHES["flash_attn_mrq_packed_kv"]``. The
 boolean mask is not on the DiT serving path and waits for a later slice.
+
+``flash_attn_mrq_vec`` (B8) replaces ``::flash_attn_mrq_vec``: ``g_qk``
+and ``g_pv`` are (B,) int32 device vectors and batch row b runs with its
+own groups (the slot pool's rows sit at different timesteps; an index
+outside the stacks is clamped on the device, as in ``int8_fused``); it
+counts under ``flash_attn_mrq_vec`` (``flash_attn_mrq_vec_packed_kv``). Its k
+and v codes are made per q batch row: under GQA (rep > 1) the wrapper
+repeats k and v over the rep q rows of each kv row first, so a q row
+never reads another row's group.
 """
 from __future__ import annotations
 
@@ -27,7 +37,9 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.int8_fused import _DT, _need
+from repro_torch.kernels.int8_fused import (
+    _DT, _need, clamp_groups, is_vec, row_groups,
+)
 
 MAX_HEAD_DIM = 128
 
@@ -44,6 +56,30 @@ def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
     return ref.flash_core_ref(
         q, k, v, s_q[g_qk][0], s_k[g_qk][0], qk_scale[g_qk][0], s1[g_pv][0],
         s_v[g_pv][0], scale1[g_pv][0], scale2[g_pv][0], bits,
+        out_dtype=out_dtype, packed_kv=packed_kv)
+
+
+def _repeat_kv(k, v, B):
+    """k, v (Bk, N, D) -> (B, N, D): kv row j serves q rows j*rep ..
+    (j+1)*rep - 1 (expand, no host read)."""
+    Bk = k.shape[0]
+    if Bk == B:
+        return k, v
+    return tuple(t[:, None].expand((Bk, B // Bk) + tuple(t.shape[1:]))
+                 .reshape((B,) + tuple(t.shape[1:])) for t in (k, v))
+
+
+def flash_attn_mrq_vec_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
+                             scale2, g_qk=None, g_pv=None, *, bits=8,
+                             packed_kv=False, out_dtype=torch.float32):
+    """Plain version of B8: ``ref.flash_attn_mrq_vec_ref`` with kv gathered
+    per q batch row."""
+    k, v = _repeat_kv(k, v, q.shape[0])
+    return ref.flash_attn_mrq_vec_ref(
+        q, k, v, {"s_q": s_q, "s_k": s_k, "scale": qk_scale},
+        {"s1": s1, "s_v": s_v, "scale1": scale1, "scale2": scale2},
+        g_qk=clamp_groups(g_qk, s_q.shape[0]),
+        g_pv=clamp_groups(g_pv, s1.shape[0]), bits=bits,
         out_dtype=out_dtype, packed_kv=packed_kv)
 
 
@@ -71,6 +107,35 @@ def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
         return flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v,
                                     scale1, scale2, g_qk, g_pv, bits=bits,
                                     packed_kv=packed_kv, out_dtype=out_dtype)
+    return _launch(q, k, v, (s_q, s_k, qk_scale, s1, s_v, scale1, scale2),
+                   (g_qk, g_pv), bits, packed_kv, out_dtype)
+
+
+def flash_attn_mrq_vec(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
+                       g_qk=None, g_pv=None, *, bits=8, packed_kv=False,
+                       out_dtype=torch.float32):
+    """B8 (see the module docstring): ``g_qk``/``g_pv`` (B,) int32 device
+    vectors, None for group 0. CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
+    if packed_kv and bits != 4:
+        raise ValueError("packed_kv streams nibbles: 4-bit codes only")
+    B = q.shape[0]
+    g_qk, g_pv = (row_groups(g, B, q.device) for g in (g_qk, g_pv))
+    if not _k.use_kernel(q):
+        return flash_attn_mrq_vec_plain(
+            q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2, g_qk, g_pv,
+            bits=bits, packed_kv=packed_kv, out_dtype=out_dtype)
+    k, v = _repeat_kv(k, v, B)
+    return _launch(q, k, v, (s_q, s_k, qk_scale, s1, s_v, scale1, scale2),
+                   (g_qk, g_pv), bits, packed_kv, out_dtype)
+
+
+def _launch(q, k, v, params, groups, bits, packed_kv, out_dtype):
+    """Check the operands and launch B3/B3b (scalar ``groups``) or B8
+    (a pair of (B,) vectors)."""
+    s_q, s_k, qk_scale, s1, s_v, scale1, scale2 = params
+    g_qk, g_pv = groups
+    vec = is_vec(g_qk)
     B, M, D = q.shape
     Bk, N, _ = k.shape
     if B % Bk or not 0 < D <= MAX_HEAD_DIM:
@@ -87,8 +152,18 @@ def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
                        ("s_v", s_v, Gp), ("scale1", scale1, Gp),
                        ("scale2", scale2, Gp)):
         _need(t, name, (torch.float32,), (G, 1), dev)
-    if not (0 <= g_qk < Gq and 0 <= g_pv < Gp):
+    if vec:
+        _need(g_qk, "g_qk", (torch.int32,), (B,), dev)
+        _need(g_pv, "g_pv", (torch.int32,), (B,), dev)
+        if Bk != B:
+            raise ValueError("flash_attn_mrq_vec codes kv per q batch row: "
+                             f"k has {Bk} rows for {B} q rows")
+        gptrs = (g_qk.data_ptr(), g_pv.data_ptr())
+    elif not (0 <= g_qk < Gq and 0 <= g_pv < Gp):
         raise ValueError(f"groups ({g_qk}, {g_pv}) outside ({Gq}, {Gp})")
+    else:
+        pair = _pair_ptr(dev, g_qk, g_pv)
+        gptrs = (pair, pair + 4)
     out = torch.empty((B, M, D), dtype=out_dtype, device=dev)
     # int8 code scratch: head dim padded to the 32-deep mma (q, k) and to 8
     # (v, transposed to kv-contiguous rows); rows padded to the tiles;
@@ -102,11 +177,13 @@ def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
     err = build.lib("flash_attn_mrq").flash_attn_mrq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), s_q.data_ptr(),
         s_k.data_ptr(), qk_scale.data_ptr(), s1.data_ptr(), s_v.data_ptr(),
-        scale1.data_ptr(), scale2.data_ptr(), _pair_ptr(dev, g_qk, g_pv),
+        scale1.data_ptr(), scale2.data_ptr(), *gptrs,
         out.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
         B, M, N, D, B // Bk, 2 ** (bits - 1), int(packed_kv), _DT[q.dtype],
-        _DT[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
-    name = "flash_attn_mrq_packed_kv" if packed_kv else "flash_attn_mrq"
+        _DT[out_dtype], int(vec), Gq, Gp,
+        torch.cuda.current_stream(dev).cuda_stream)
+    name = "flash_attn_mrq" + ("_vec" if vec else "") + \
+        ("_packed_kv" if packed_kv else "")
     build.check(err, "flash_attn_mrq", name)
     _k.LAUNCHES[name] += 1
     return out

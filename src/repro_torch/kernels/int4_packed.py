@@ -1,11 +1,12 @@
-"""Packed-int4 fused linears (kernels B4 and B5) — wrappers, plain versions
-and launch counts.
+"""Packed-int4 fused linears (kernels B4 and B5, and their per-row-group
+siblings B7a and B7b) — wrappers, plain versions and launch counts.
 
-``int4_matmul_fq`` replaces ``repro/kernels/int4_packed.py::int4_matmul_fq``
-and ``int4_matmul_mrq_fq`` replaces ``::int4_matmul_mrq_fq``; both run the
-CUDA kernel in ``csrc/int4_packed.cu`` on CUDA tensors and their plain
-PyTorch version (``*_plain``, the torch port of the ``ref.py`` oracle) on
-CPU tensors.
+``int4_matmul_fq`` replaces ``repro/kernels/int4_packed.py::int4_matmul_fq``,
+``int4_matmul_mrq_fq`` replaces ``::int4_matmul_mrq_fq``, and
+``int4_matmul_fq_vec`` / ``int4_matmul_mrq_fq_vec`` replace their
+``_vec`` siblings; all run the CUDA kernels in ``csrc/int4_packed.cu`` on
+CUDA tensors and their plain PyTorch version (``*_plain``, the torch port
+of the ``ref.py`` oracle) on CPU tensors.
 
 Weights are signed 4-bit codes two per byte along K (``ref.pack_int4``:
 row ``2i`` in byte ``i``'s low nibble, ``2i + 1`` in its high nibble),
@@ -18,7 +19,10 @@ an f32 accumulator in ascending order; activation codes at 4 bits
 ``nm``, ``gr``, ``bv``) are B1's (``kernels/int8_fused.py``).
 
 Shapes: x (M, K) f32/bf16; wp (Kp/2, N) int8 with Kp = nk * group_k >= K;
-sx/zx (G, 1) f32; scale (G, nk, N) f32; corr (G, nk, N) int32.
+sx/zx (G, 1) f32; scale (G, nk, N) f32; corr (G, nk, N) int32. The
+``_vec`` forms take an (M,) int32 device vector ``gv`` in place of ``g``
+(row i rescales each K group with ``scale[gv[i], kg]``), as
+``kernels/int8_fused.py`` describes.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.int8_fused import (
-    _BK, _DT, _need, _ptr, cached_layout, check_operands, group_ptr, prep,
+    _BK, _DT, _need, _ptr, cached_layout, check_operands, clamp_groups,
+    group_arg, prep, row_groups,
 )
 
 
@@ -82,16 +87,18 @@ def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = torch.empty((2 if mrq else 1, M, nk * gkp), dtype=torch.int8,
                         device=dev)
+    gptr, gs = group_arg(g, dev)
     err = build.lib("int4_packed").int4_matmul_launch(
         x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
-        group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
+        gptr, _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
         _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
         codes[0].data_ptr(), codes[-1].data_ptr(), M, K, nk * gkp, N,
         group_k, gkp, nk, _DT[x.dtype],
         _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
-        torch.cuda.current_stream(dev).cuda_stream)
-    name = "int4_matmul_mrq_fq" if mrq else "int4_matmul_fq"
+        gs, scale_a.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+    name = ("int4_matmul_mrq_fq" if mrq else "int4_matmul_fq") + \
+        ("_vec" if gs else "")
     build.check(err, "int4_packed", name)
     _k.LAUNCHES[name] += 1
     return out
@@ -143,5 +150,59 @@ def int4_matmul_mrq_fq(x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=None,
                        group_k, out_dtype)
     return int4_matmul_mrq_fq_plain(
         x, wp, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
+        stats=stats, nm=nm, gr=gr, bv=bv, group_k=group_k,
+        out_dtype=out_dtype)
+
+
+def int4_matmul_fq_vec_plain(x, wp, sx, zx, scale, corr, bias=None,
+                             gv=None, *, ps=None, stats=None, nm=None,
+                             gr=None, bv=None, group_k=256,
+                             out_dtype=torch.float32):
+    """Plain version of B7a: ``ref.int4_matmul_fq_vec_fused_ref``."""
+    return ref.int4_matmul_fq_vec_fused_ref(
+        x, wp, sx, zx, scale, corr, bias=bias,
+        gv=clamp_groups(gv, scale.shape[0]), ps=ps, nm=nm, gr=gr, bv=bv,
+        group_k=group_k, out_dtype=out_dtype, stats=stats)
+
+
+def int4_matmul_mrq_fq_vec_plain(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                                 bias=None, gv=None, *, ps=None, stats=None,
+                                 nm=None, gr=None, bv=None, group_k=256,
+                                 out_dtype=torch.float32):
+    """Plain version of B7b."""
+    return ref.int4_matmul_mrq_fq_vec_fused_ref(
+        x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=bias,
+        gv=clamp_groups(gv, scale_neg.shape[0]), ps=ps,
+        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype,
+        stats=stats)
+
+
+def int4_matmul_fq_vec(x, wp, sx, zx, scale, corr, bias=None, gv=None, *,
+                       ps=None, nm=None, gr=None, bv=None, group_k=256,
+                       out_dtype=torch.float32):
+    """B7a: B4 with a per-row (M,) int32 group vector ``gv``. CUDA tensors
+    launch the kernel, CPU tensors take the plain version."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    gv = row_groups(gv, x.shape[0], x.device)
+    if _k.use_kernel(x):
+        return _launch(False, x.contiguous(), wp, sx, zx, scale, None, corr,
+                       bias, gv, ps, stats, nm, gr, bv, group_k, out_dtype)
+    return int4_matmul_fq_vec_plain(x, wp, sx, zx, scale, corr, bias, gv,
+                                    ps=ps, stats=stats, nm=nm, gr=gr, bv=bv,
+                                    group_k=group_k, out_dtype=out_dtype)
+
+
+def int4_matmul_mrq_fq_vec(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                           bias=None, gv=None, *, ps=None, nm=None, gr=None,
+                           bv=None, group_k=256, out_dtype=torch.float32):
+    """B7b: B5 with a per-row group vector ``gv``."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    gv = row_groups(gv, x.shape[0], x.device)
+    if _k.use_kernel(x):
+        return _launch(True, x.contiguous(), wp, s_neg, s_pos, scale_neg,
+                       scale_pos, None, bias, gv, ps, stats, nm, gr, bv,
+                       group_k, out_dtype)
+    return int4_matmul_mrq_fq_vec_plain(
+        x, wp, s_neg, s_pos, scale_neg, scale_pos, bias, gv, ps=ps,
         stats=stats, nm=nm, gr=gr, bv=bv, group_k=group_k,
         out_dtype=out_dtype)

@@ -1,11 +1,12 @@
-"""Fused int8 linears (kernels B1 and B2) — wrappers, plain versions and
-launch counts.
+"""Fused int8 linears (kernels B1 and B2, and their per-row-group
+siblings B6a and B6b) — wrappers, plain versions and launch counts.
 
-``int8_matmul_fq`` replaces ``repro/kernels/int8_fused.py::int8_matmul_fq``
-and ``int8_matmul_mrq_fq`` replaces ``::int8_matmul_mrq_fq``; both run the
-CUDA kernel in ``csrc/int8_fused.cu`` on CUDA tensors and their plain
-PyTorch version (``*_plain``, the torch port of the ``ref.py`` oracle) on
-CPU tensors.
+``int8_matmul_fq`` replaces ``repro/kernels/int8_fused.py::int8_matmul_fq``,
+``int8_matmul_mrq_fq`` replaces ``::int8_matmul_mrq_fq``, and
+``int8_matmul_fq_vec`` / ``int8_matmul_mrq_fq_vec`` replace their
+``_vec`` siblings; all run the CUDA kernels in ``csrc/int8_fused.cu`` on
+CUDA tensors and their plain PyTorch version (``*_plain``, the torch port
+of the ``ref.py`` oracle) on CPU tensors.
 
 Computes (B1) ``y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1)
 @ wq) - corr[g]) * scale[g] + bias`` and (B2) the MRQ sign split
@@ -18,6 +19,13 @@ and handed to kernel and plain version alike.
 Shapes: x (M, K) f32/bf16; wq (K, N) int8; sx/zx (G, 1) f32; scale (G, N)
 f32; corr (G, N) int32; bias (N,); ps (K,); nm = (shift, scale) (B, K);
 gr = (gate (B, N), residual (M, N)); bv (M,) int32 row -> batch map.
+
+The ``_vec`` forms take ``gv``, an (M,) int32 device tensor, instead of
+the scalar ``g``: row i runs with group gv[i] (the slot pool's rows sit
+at different timesteps). gv stays on the device all the way into the
+kernel — no host read of it. An entry outside [0, G) reads the nearest
+group: the kernels clamp each group index on the device (``group_at``,
+``csrc/common.cuh``), and the plain versions clamp alike.
 """
 from __future__ import annotations
 
@@ -29,6 +37,35 @@ from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 
 _DT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def is_vec(g) -> bool:
+    """True for a per-row group vector (a 1-D tensor), False for a
+    scalar group."""
+    return isinstance(g, torch.Tensor) and g.ndim == 1
+
+
+def row_groups(gv, M: int, dev):
+    """The ``_vec`` kernels' gv operand: (M,) int32 contiguous on ``dev``
+    (group 0 for every row when None)."""
+    if gv is None:
+        return torch.zeros((M,), dtype=torch.int32, device=dev)
+    return gv.to(torch.int32).contiguous()
+
+
+def clamp_groups(gv, G: int):
+    """A plain version's group vector clamped into [0, G), as the kernels
+    clamp each index they read."""
+    return None if gv is None else torch.clamp(gv, 0, G - 1)
+
+
+def group_arg(g, dev):
+    """(device pointer, row stride) of the group operand: a scalar group's
+    entry in the cached index table with stride 0, or a per-row vector's
+    own storage with stride 1."""
+    if is_vec(g):
+        return g.data_ptr(), 1
+    return group_ptr(dev, g), 0
 
 
 def group_ptr(dev, g: int) -> int:
@@ -49,9 +86,10 @@ _LAYOUTS: dict = {}      # id(weight) -> (weakref to it, {tag: layout copy})
 
 
 def cached_layout(w, tag, build):
-    """``build(w)``, made once per weight tensor and ``tag`` and freed with
-    the weight: the table holds a weak reference to ``w`` beside the copy,
-    and a finalizer drops the entry when ``w`` is collected."""
+    """``build(w)``, made once per tensor ``w`` (a weight, or a forward's
+    group vector) and ``tag`` and freed with ``w``: the table holds a weak
+    reference to ``w`` beside the result, and a finalizer drops the entry
+    when ``w`` is collected."""
     key = id(w)
     hit = _LAYOUTS.get(key)
     if hit is None or hit[0]() is not w:
@@ -110,7 +148,9 @@ def check_operands(x, scale_shape, s_a, s_b, scale_a, scale_b, corr, bias,
     else:
         _need(corr, "corr", i32, scale_shape, dev)
     _need(bias, "bias", f32, (N,), dev)
-    if not 0 <= g < G:
+    if is_vec(g):
+        _need(g, "gv", i32, (M,), dev)
+    elif not 0 <= g < G:
         raise ValueError(f"group {g} outside [0, {G})")
     if out_dtype not in _DT:
         raise ValueError(f"out_dtype {out_dtype} not supported")
@@ -144,19 +184,21 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     wt = _transposed(wq, Kp)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = torch.empty((2 if mrq else 1, M, Kp), dtype=torch.int8, device=dev)
+    gptr, gs = group_arg(g, dev)
     so = build.lib("int8_fused")
     err = so.int8_matmul_launch(
         x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
-        group_ptr(dev, g), _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
+        gptr, _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
         _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
         codes[0].data_ptr(), codes[-1].data_ptr(), M, K, Kp, N,
         2 ** (bits - 1), _DT[x.dtype],
         _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "int8_fused",
-                "int8_matmul_mrq_fq" if mrq else "int8_matmul_fq")
-    _k.LAUNCHES["int8_matmul_mrq_fq" if mrq else "int8_matmul_fq"] += 1
+        gs, scale_a.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+    name = ("int8_matmul_mrq_fq" if mrq else "int8_matmul_fq") + \
+        ("_vec" if gs else "")
+    build.check(err, "int8_fused", name)
+    _k.LAUNCHES[name] += 1
     return out
 
 
@@ -217,4 +259,57 @@ def int8_matmul_mrq_fq(x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=None,
                        bits, out_dtype)
     return int8_matmul_mrq_fq_plain(
         x, wq, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
+        stats=stats, nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
+
+
+def int8_matmul_fq_vec_plain(x, wq, sx, zx, scale, corr, bias=None,
+                             gv=None, *, ps=None, stats=None, nm=None,
+                             gr=None, bv=None, bits=8,
+                             out_dtype=torch.float32):
+    """Plain version of B6a: ``ref.int8_matmul_fq_vec_fused_ref``."""
+    return ref.int8_matmul_fq_vec_fused_ref(
+        x, wq, sx, zx, scale, corr, bias=bias,
+        gv=clamp_groups(gv, scale.shape[0]), ps=ps, nm=nm, gr=gr,
+        bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+
+
+def int8_matmul_mrq_fq_vec_plain(x, wq, s_neg, s_pos, scale_neg, scale_pos,
+                                 bias=None, gv=None, *, ps=None, stats=None,
+                                 nm=None, gr=None, bv=None, bits=8,
+                                 out_dtype=torch.float32):
+    """Plain version of B6b."""
+    return ref.int8_matmul_mrq_fq_vec_fused_ref(
+        x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=bias,
+        gv=clamp_groups(gv, scale_neg.shape[0]), ps=ps,
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+
+
+def int8_matmul_fq_vec(x, wq, sx, zx, scale, corr, bias=None, gv=None, *,
+                       ps=None, nm=None, gr=None, bv=None, bits=8,
+                       out_dtype=torch.float32):
+    """B6a: B1 with a per-row (M,) int32 group vector ``gv`` (see the
+    module docstring). CUDA tensors launch the kernel, CPU tensors take
+    the plain version."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    gv = row_groups(gv, x.shape[0], x.device)
+    if _k.use_kernel(x):
+        return _launch(False, x.contiguous(), wq, sx, zx, scale, None, corr,
+                       bias, gv, ps, stats, nm, gr, bv, bits, out_dtype)
+    return int8_matmul_fq_vec_plain(x, wq, sx, zx, scale, corr, bias, gv,
+                                    ps=ps, stats=stats, nm=nm, gr=gr, bv=bv,
+                                    bits=bits, out_dtype=out_dtype)
+
+
+def int8_matmul_mrq_fq_vec(x, wq, s_neg, s_pos, scale_neg, scale_pos,
+                           bias=None, gv=None, *, ps=None, nm=None, gr=None,
+                           bv=None, bits=8, out_dtype=torch.float32):
+    """B6b: B2 with a per-row group vector ``gv``."""
+    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    gv = row_groups(gv, x.shape[0], x.device)
+    if _k.use_kernel(x):
+        return _launch(True, x.contiguous(), wq, s_neg, s_pos, scale_neg,
+                       scale_pos, None, bias, gv, ps, stats, nm, gr, bv,
+                       bits, out_dtype)
+    return int8_matmul_mrq_fq_vec_plain(
+        x, wq, s_neg, s_pos, scale_neg, scale_pos, bias, gv, ps=ps,
         stats=stats, nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)

@@ -1,5 +1,5 @@
 """Serving-path kernel wrappers and the pack builders — port of the
-scalar-group part of ``repro/kernels/ops.py``.
+serving part of ``repro/kernels/ops.py`` (scalar and per-slot groups).
 
 ``convert_for_kernels`` turns calibrated qparams plus fp weights into the
 packs ``QuantContext(kernel=True)`` dispatches on (``LINEAR_PACKS``): per
@@ -12,28 +12,43 @@ attention block (-> B3 ``flash_attn_mrq``, packed kv at 4 bits: B3b).
 Activation-side parameters are stacked along a leading (G,) TGQ group
 axis; the kernels read the group's row themselves.
 
-Not ported yet (later slices, ROADMAP queue 1): the per-row ``_vec``
-dispatch and the composed attention chain.
+``tgroup`` is a scalar group (one per forward: the sync sampler) or a
+per-slot (B,) int32 device vector (the continuous-batching slot pool):
+then each wrapper calls the ``*_vec`` kernel (B6a, B6b, B7a, B7b, B8)
+with one group per matmul row (batch·head row in attention), so one
+launch serves slots at different timesteps and the weights stream once.
+A pack whose groups resolve to a scalar (G = 1) beside a vector sibling
+rides along as a constant vector. The vector never leaves the device.
+
+Not ported yet (ROADMAP queue 1, item 9): the composed attention chain.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantizers import (
     ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
 )
-from repro_torch.kernels.flash_attn_mrq import flash_attn_mrq
-from repro_torch.kernels.int4_packed import (
-    int4_matmul_fq, int4_matmul_mrq_fq,
+from repro_torch.kernels.flash_attn_mrq import (
+    flash_attn_mrq, flash_attn_mrq_vec,
 )
-from repro_torch.kernels.int8_fused import int8_matmul_fq, int8_matmul_mrq_fq
+from repro_torch.kernels.int4_packed import (
+    int4_matmul_fq, int4_matmul_fq_vec, int4_matmul_mrq_fq,
+    int4_matmul_mrq_fq_vec,
+)
+from repro_torch.kernels.int8_fused import (
+    int8_matmul_fq, int8_matmul_fq_vec, int8_matmul_mrq_fq,
+    int8_matmul_mrq_fq_vec, cached_layout, is_vec,
+)
 from repro_torch.kernels.ref import _ceil, pack_int4
 from repro_torch.quant.groups import resolve_group
 
 # The linear packs, in dispatch order: (pack key, wrapper in this module,
-# kernel it launches). ``QuantContext.linear`` and the artifact's
+# kernel it launches for a scalar group; a group vector launches the
+# kernel's ``_vec`` sibling). ``QuantContext.linear`` and the artifact's
 # ``fallback_ops`` / ``packed_counts`` all read this one list.
 LINEAR_PACKS = (("int8", "int8_linear", "int8_matmul_fq"),
                 ("int8_mrq", "int8_linear_mrq", "int8_matmul_mrq_fq"),
@@ -320,9 +335,46 @@ def convert_for_kernels(qparams: Dict[str, dict],
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _group_index(pack: dict, tgroup) -> int:
-    """The TGQ group clamped into the pack's range (scalar groups)."""
-    return resolve_group(tgroup, pack["groups"])
+def _groups(pack: dict, tgroup, n_rows: int):
+    """The pack's group operand for ``n_rows`` batch-major rows: the TGQ
+    group clamped into the pack's range (an int), or, for a per-slot
+    (B,) ``tgroup`` and a pack of G > 1 groups, one group per row (an
+    (n_rows,) int32 device tensor, clamped into [0, G) by the kernel as
+    it reads each entry). One forward hands every op the same ``tgroup``
+    tensor, so each row vector is built once per (tgroup, n_rows) and
+    shared by the ops of that forward."""
+    G = pack["groups"]
+    if G == 1 or not is_vec(tgroup):
+        return resolve_group(tgroup, G)
+    return cached_layout(tgroup, ("rows", n_rows), lambda t: _rows_vec(
+        t.to(torch.int32), n_rows))
+
+
+def _rows_vec(g, n_rows: int):
+    """A per-slot (B,) group vector -> one entry per matmul row.
+    ``x.reshape(-1, K)`` keeps rows batch-major, so slot b owns rows
+    [b * n_rows / B, (b + 1) * n_rows / B); expand + reshape, no host
+    read."""
+    B = int(g.shape[0])
+    if n_rows % B != 0:
+        raise ValueError(f"vector tgroup: {n_rows} matmul rows not "
+                         f"divisible by {B} slots")
+    return g[:, None].expand(B, n_rows // B).reshape(n_rows)
+
+
+def _as_vec(g, n: int, device):
+    """A scalar group lifted to a constant (n,) int32 vector (a G = 1 pack
+    riding beside a vector sibling); a vector passes through."""
+    if is_vec(g):
+        return g
+    return torch.full((n,), int(g), dtype=torch.int32, device=device)
+
+
+def _repeat_rows(n: int, B: int, device):
+    """(n,) int32 row -> batch map for batch-major rows, n // B rows per
+    batch (expand + reshape, no host read)."""
+    return torch.arange(B, dtype=torch.int32, device=device)[:, None] \
+        .expand(B, n // B).reshape(n)
 
 
 def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
@@ -341,8 +393,7 @@ def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
     if n_rows % B != 0:
         raise ValueError(
             f"fusion rows: {n_rows} matmul rows not divisible by batch {B}")
-    kw["bv"] = torch.arange(B, dtype=torch.int32, device=xm.device
-                            ).repeat_interleave(n_rows // B)
+    kw["bv"] = _repeat_rows(n_rows, B, xm.device)
     if norm_mod is not None:
         kw["nm"] = tuple(t.float() for t in norm_mod)
     if gate_residual is not None:
@@ -351,76 +402,75 @@ def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
     return kw
 
 
-def int8_linear(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
-                norm_mod=None, gate_residual=None):
-    """Fused quantize -> matmul -> dequant serving linear (B1)."""
+def _linear(kern, kern_vec, wkey, x, pack, bias, out_dtype, tgroup,
+            norm_mod, gate_residual, params, width):
+    """One fused serving linear: the scalar kernel for a scalar group,
+    its ``_vec`` sibling (one group per matmul row) for a vector."""
     out_dtype = out_dtype or x.dtype
     shape = x.shape
     xm = x.reshape(-1, shape[-1])
-    y = int8_matmul_fq(
-        xm, pack["wq"], pack["sx"], pack["zx"], pack["scale"], pack["corr"],
-        bias=None if bias is None else bias.float(),
-        g=_group_index(pack, tgroup), bits=pack.get("bits", 8),
-        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
-                                              gate_residual))
-    return y.reshape(shape[:-1] + (pack["wq"].shape[1],))
+    g = _groups(pack, tgroup, xm.shape[0])
+    kw = dict(bias=None if bias is None else bias.float(),
+              out_dtype=out_dtype, **width,
+              **_fusion_kwargs(pack, xm, norm_mod, gate_residual))
+    args = (xm, pack[wkey]) + tuple(pack[k] for k in params)
+    if is_vec(g):
+        y = kern_vec(*args, gv=g, **kw)
+    else:
+        y = kern(*args, g=g, **kw)
+    return y.reshape(shape[:-1] + (pack[wkey].shape[1],))
+
+
+_AFFINE = ("sx", "zx", "scale", "corr")
+_MRQ = ("s_neg", "s_pos", "scale_neg", "scale_pos")
+
+
+def int8_linear(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
+                norm_mod=None, gate_residual=None):
+    """Fused quantize -> matmul -> dequant serving linear (B1; B6a for a
+    group vector)."""
+    return _linear(int8_matmul_fq, int8_matmul_fq_vec, "wq", x, pack, bias,
+                   out_dtype, tgroup, norm_mod, gate_residual, _AFFINE,
+                   {"bits": pack.get("bits", 8)})
 
 
 def int8_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                     norm_mod=None, gate_residual=None):
-    """MRQ-input serving linear (B2): one weight traversal, two region
-    accumulators."""
-    out_dtype = out_dtype or x.dtype
-    shape = x.shape
-    xm = x.reshape(-1, shape[-1])
-    y = int8_matmul_mrq_fq(
-        xm, pack["wq"], pack["s_neg"], pack["s_pos"], pack["scale_neg"],
-        pack["scale_pos"], bias=None if bias is None else bias.float(),
-        g=_group_index(pack, tgroup), bits=pack.get("bits", 8),
-        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
-                                              gate_residual))
-    return y.reshape(shape[:-1] + (pack["wq"].shape[1],))
+    """MRQ-input serving linear (B2; B6b for a group vector): one weight
+    traversal, two region accumulators."""
+    return _linear(int8_matmul_mrq_fq, int8_matmul_mrq_fq_vec, "wq", x,
+                   pack, bias, out_dtype, tgroup, norm_mod, gate_residual,
+                   _MRQ, {"bits": pack.get("bits", 8)})
 
 
 def int4_linear(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                 norm_mod=None, gate_residual=None):
-    """Packed-int4 serving linear (B4): nibble weights, per-K-group
-    dequant into an f32 accumulator."""
-    out_dtype = out_dtype or x.dtype
-    shape = x.shape
-    xm = x.reshape(-1, shape[-1])
-    y = int4_matmul_fq(
-        xm, pack["wp"], pack["sx"], pack["zx"], pack["scale"], pack["corr"],
-        bias=None if bias is None else bias.float(),
-        g=_group_index(pack, tgroup), group_k=pack["group_k"],
-        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
-                                              gate_residual))
-    return y.reshape(shape[:-1] + (pack["wp"].shape[1],))
+    """Packed-int4 serving linear (B4; B7a for a group vector): nibble
+    weights, per-K-group dequant into an f32 accumulator."""
+    return _linear(int4_matmul_fq, int4_matmul_fq_vec, "wp", x, pack, bias,
+                   out_dtype, tgroup, norm_mod, gate_residual, _AFFINE,
+                   {"group_k": pack["group_k"]})
 
 
 def int4_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                     norm_mod=None, gate_residual=None):
-    """Packed-int4 MRQ-input serving linear (B5): one nibble-weight
-    traversal, two region accumulators, per-K-group dequant."""
-    out_dtype = out_dtype or x.dtype
-    shape = x.shape
-    xm = x.reshape(-1, shape[-1])
-    y = int4_matmul_mrq_fq(
-        xm, pack["wp"], pack["s_neg"], pack["s_pos"], pack["scale_neg"],
-        pack["scale_pos"], bias=None if bias is None else bias.float(),
-        g=_group_index(pack, tgroup), group_k=pack["group_k"],
-        out_dtype=out_dtype, **_fusion_kwargs(pack, xm, norm_mod,
-                                              gate_residual))
-    return y.reshape(shape[:-1] + (pack["wp"].shape[1],))
+    """Packed-int4 MRQ-input serving linear (B5; B7b for a group vector):
+    one nibble-weight traversal, two region accumulators, per-K-group
+    dequant."""
+    return _linear(int4_matmul_mrq_fq, int4_matmul_mrq_fq_vec, "wp", x,
+                   pack, bias, out_dtype, tgroup, norm_mod, gate_residual,
+                   _MRQ, {"group_k": pack["group_k"]})
 
 
 def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                     scale=1.0, tgroup=None, out_dtype=None):
     """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3;
-    at 4 bits with packed kv, B3b).
+    at 4 bits with packed kv, B3b; B8 for a group vector).
 
     q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd). Returns
-    (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale."""
+    (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale. With
+    a per-slot (B,) ``tgroup`` each slot's group repeats over its Hk * G
+    batch·head rows (slot-major after the transpose)."""
     if mask is not None:
         raise NotImplementedError(
             "masked flash attention is not on the DiT serving path")
@@ -432,10 +482,15 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     kf = k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
     bits = int(qk_pack.get("bits", 8))
-    out = flash_attn_mrq(
-        qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
-        qk_pack["scale"] * torch.tensor(scale, dtype=torch.float32),
-        pv_pack["s1"], pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"],
-        g_qk=_group_index(qk_pack, tgroup), g_pv=_group_index(pv_pack, tgroup),
-        bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
+    g_qk = _groups(qk_pack, tgroup, BHG)
+    g_pv = _groups(pv_pack, tgroup, BHG)
+    args = (qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
+            qk_pack["scale"] * float(np.float32(scale)), pv_pack["s1"],
+            pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"])
+    kw = dict(bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
+    if is_vec(g_qk) or is_vec(g_pv):
+        out = flash_attn_mrq_vec(*args, g_qk=_as_vec(g_qk, BHG, q.device),
+                                 g_pv=_as_vec(g_pv, BHG, q.device), **kw)
+    else:
+        out = flash_attn_mrq(*args, g_qk=g_qk, g_pv=g_pv, **kw)
     return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)

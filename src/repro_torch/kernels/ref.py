@@ -2,7 +2,8 @@
 tolerance registry.
 
 Torch ports of the serving-path entries of ``repro/kernels/ref.py`` (the
-byte-code and packed-int4 linears, flash attention) and of the nibble
+byte-code and packed-int4 linears, flash attention, and the per-row-group
+``*_vec`` oracles of the continuous-batching path) and of the nibble
 helpers of ``repro/kernels/int4_packed.py``. Each
 ``*_ref`` computes exactly what the corresponding kernel must produce, op
 for op and rounding step for rounding step (``torch.round`` rounds half
@@ -50,6 +51,14 @@ TOLERANCES = {
     "B3b_vs_B3": (0.0, "packed kv holds the same 4-bit codes two per "
                   "byte; the kernel widens them before the same "
                   "arithmetic, so only the storage differs"),
+    "vec_vs_plain": (0.0, "B6a/B6b/B7a/B7b/B8 run their scalar siblings' "
+                     "arithmetic with each row's (batch row's) group "
+                     "read from the vector; the plain versions gather "
+                     "the same rows"),
+    "vec_vs_scalar_kernel": (0.0, "a constant vector, or each group's rows "
+                             "run through the scalar kernel at that "
+                             "group, computes every output element with "
+                             "the same operands in the same order"),
     "B3_flipped_row_rate": (0.02, "rowsum(e) over each 128-wide kv tile is "
                             "summed by XLA (the JAX oracle) in another "
                             "order than by the port (``tile_rowsum``, the "
@@ -69,6 +78,9 @@ TOLERANCES = {
                            "(the jnp oracles run eagerly, op by op)"),
     "B4_B5_plain_vs_jax": (0.0, "no norm_mod: the same group-ordered f32 "
                            "accumulation op for op (eager jnp oracles)"),
+    "vec_plain_vs_jax": (0.0, "no norm_mod: the vec oracles gather each "
+                         "row's parameters and then run the scalar "
+                         "oracles' f32 ops, as the jnp vec oracles do"),
     "B1_B2_norm_mod_plain_vs_jax_flip_rate": (
         1e-3, "torch and XLA sum the layernorm mean/var in different "
         "orders and differ in rsqrt by an ulp; a code sitting on a "
@@ -395,3 +407,142 @@ def flash_attn_mrq_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=0,
         qk_pack["scale"][g_qk][0] * scale, pv_pack["s1"][g_pv][0],
         pv_pack["s_v"][g_pv][0], pv_pack["scale1"][g_pv][0],
         pv_pack["scale2"][g_pv][0], bits, bn=bn, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# per-row-group oracles (vector tgroup): the ``*_vec`` kernels B6a, B6b,
+# B7a, B7b and B8 of the continuous-batching slot pool. Row i of a linear
+# (batch row b of flash) takes the parameters of group gv[i] (g[b]),
+# gathered from the full (G, ...) stacks; a constant vector is the scalar
+# oracle at that group, element for element.
+# ---------------------------------------------------------------------------
+def _row_groups(gv, n, device):
+    """gv as int64 indices, or group 0 for all n rows when None."""
+    if gv is None:
+        return torch.zeros((n,), dtype=torch.int64, device=device)
+    return gv.long()
+
+
+def int8_matmul_fq_vec_ref(x, wq, sx, zx, scale, corr, bias=None, gv=None,
+                           bits: int = 8, out_dtype=torch.float32):
+    gv = _row_groups(gv, x.shape[0], x.device)
+    xq = quantize_int8_ref(x.float(), sx[gv], zx[gv], bits)
+    y = (imatmul(xq, wq) - corr[gv]).float() * scale[gv]
+    if bias is not None:
+        y = y + bias[None, :].float()
+    return y.to(out_dtype)
+
+
+def int8_matmul_mrq_fq_vec_ref(x, wq, s_neg, s_pos, scale_neg, scale_pos,
+                               bias=None, gv=None, bits: int = 8,
+                               out_dtype=torch.float32):
+    half = 2 ** (bits - 1)
+    gv = _row_groups(gv, x.shape[0], x.device)
+    qn, qp = mrq_codes_ref(x.float(), s_neg[gv], s_pos[gv], half)
+    y = (imatmul(qn, wq).float() * scale_neg[gv]
+         + imatmul(qp, wq).float() * scale_pos[gv])
+    if bias is not None:
+        y = y + bias[None, :].float()
+    return y.to(out_dtype)
+
+
+def int4_matmul_fq_vec_ref(x, wp, sx, zx, scale, corr, bias=None, gv=None,
+                           group_k: int = 256, out_dtype=torch.float32):
+    """B4's group-ordered f32 accumulation with per-row scale/corr rows
+    ``scale[gv[i], kg]``."""
+    M, K = x.shape
+    Kp = 2 * wp.shape[0]
+    gv = _row_groups(gv, M, x.device)
+    xq = quantize_int8_ref(x.float(), sx[gv], zx[gv], bits=4)
+    xq = torch.nn.functional.pad(xq, (0, Kp - K))
+    w = unpack_int4(wp)
+    scale_r, corr_r = scale[gv], corr[gv]                 # (M, nk, N)
+    acc = torch.zeros((M, wp.shape[1]), dtype=torch.float32, device=x.device)
+    for kg in range(Kp // group_k):
+        sl = slice(kg * group_k, (kg + 1) * group_k)
+        partial = imatmul(xq[:, sl], w[sl])
+        acc = acc + ((partial - corr_r[:, kg]).float() * scale_r[:, kg])
+    if bias is not None:
+        acc = acc + bias[None, :].float()
+    return acc.to(out_dtype)
+
+
+def int4_matmul_mrq_fq_vec_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
+                               bias=None, gv=None, group_k: int = 256,
+                               out_dtype=torch.float32):
+    M, K = x.shape
+    Kp = 2 * wp.shape[0]
+    gv = _row_groups(gv, M, x.device)
+    qn, qp = (torch.nn.functional.pad(c, (0, Kp - K)) for c in
+              mrq_codes_ref(x.float(), s_neg[gv], s_pos[gv], 8))
+    w = unpack_int4(wp)
+    sn_r, sp_r = scale_neg[gv], scale_pos[gv]             # (M, nk, N)
+    acc = torch.zeros((M, wp.shape[1]), dtype=torch.float32, device=x.device)
+    for kg in range(Kp // group_k):
+        sl = slice(kg * group_k, (kg + 1) * group_k)
+        pn = imatmul(qn[:, sl], w[sl]).float()
+        pp = imatmul(qp[:, sl], w[sl]).float()
+        acc = acc + (pn * sn_r[:, kg] + pp * sp_r[:, kg])
+    if bias is not None:
+        acc = acc + bias[None, :].float()
+    return acc.to(out_dtype)
+
+
+def int8_matmul_fq_vec_fused_ref(x, wq, sx, zx, scale, corr, bias=None,
+                                 gv=None, ps=None, nm=None, gr=None, bv=None,
+                                 bits: int = 8, out_dtype=torch.float32,
+                                 stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int8_matmul_fq_vec_ref(xf, wq, sx, zx, scale, corr, bias=bias,
+                               gv=gv, bits=bits)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
+def int8_matmul_mrq_fq_vec_fused_ref(x, wq, s_neg, s_pos, scale_neg,
+                                     scale_pos, bias=None, gv=None, ps=None,
+                                     nm=None, gr=None, bv=None,
+                                     bits: int = 8, out_dtype=torch.float32,
+                                     stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int8_matmul_mrq_fq_vec_ref(xf, wq, s_neg, s_pos, scale_neg,
+                                   scale_pos, bias=bias, gv=gv, bits=bits)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
+def int4_matmul_fq_vec_fused_ref(x, wp, sx, zx, scale, corr, bias=None,
+                                 gv=None, ps=None, nm=None, gr=None, bv=None,
+                                 group_k: int = 256, out_dtype=torch.float32,
+                                 stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int4_matmul_fq_vec_ref(xf, wp, sx, zx, scale, corr, bias=bias,
+                               gv=gv, group_k=group_k)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
+def int4_matmul_mrq_fq_vec_fused_ref(x, wp, s_neg, s_pos, scale_neg,
+                                     scale_pos, bias=None, gv=None, ps=None,
+                                     nm=None, gr=None, bv=None,
+                                     group_k: int = 256,
+                                     out_dtype=torch.float32, stats=None):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+    y = int4_matmul_mrq_fq_vec_ref(xf, wp, s_neg, s_pos, scale_neg,
+                                   scale_pos, bias=bias, gv=gv,
+                                   group_k=group_k)
+    return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
+
+
+def flash_attn_mrq_vec_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=None,
+                           g_pv=None, bits: int = 8, bn: int = 128,
+                           out_dtype=torch.float32, packed_kv: bool = False):
+    """The flash recurrence (``flash_core_ref``) with every group-gathered
+    scalar widened to a (B, 1, 1) per-batch-row column; q, k and v share
+    their batch (B, S, hd)."""
+    B = q.shape[0]
+    g_qk, g_pv = (_row_groups(g, B, q.device) for g in (g_qk, g_pv))
+    col = lambda t, g: t[g].reshape(B, 1, 1)
+    return flash_core_ref(
+        q, k, v, col(qk_pack["s_q"], g_qk), col(qk_pack["s_k"], g_qk),
+        col(qk_pack["scale"], g_qk) * scale, col(pv_pack["s1"], g_pv),
+        col(pv_pack["s_v"], g_pv), col(pv_pack["scale1"], g_pv),
+        col(pv_pack["scale2"], g_pv), bits, bn=bn, out_dtype=out_dtype,
+        packed_kv=packed_kv)

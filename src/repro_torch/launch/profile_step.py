@@ -1,7 +1,7 @@
 """Where a serving step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--quantize w8a8|w6a6|w4a4] [--steps 4]
+        [--quantize w8a8|w6a6|w4a4] [--steps 4] [--async]
 
 Builds the full-width DiT-XL/2 serve of ``launch/serve.py`` (range
 calibration, microbatch 4 -> CFG 2B = 8 rows per forward), runs one
@@ -10,12 +10,19 @@ prints, per denoising step: the wall time, the device time summed over
 the CUDA kernels, the idle share (1 - device / wall), and the kernels by
 device time — the port's own (``quantize_kernel``, ``gemm_kernel``,
 ``gemm4_kernel``, ``codes_kernel``, ``flash_kernel``) and the PyTorch glue
-around them.
+around them — and the host side: the ops by self CPU time (the torch
+operators and the CUDA runtime calls the host makes for them), with
+their calls per step. ``--async`` traces one chunk of ``--steps`` steps
+of the continuous-batching engine instead (``AsyncServeEngine``, 4
+slots, after one warm-up chunk): the same forward through the
+per-row-group kernels. ``--ops-json PATH`` writes every host op and
+kernel as ``{"host"|"device": {name: [calls/step, ms/step]}}``.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import json
 import time
 
 
@@ -25,26 +32,40 @@ def main(argv=None) -> None:
     ap.add_argument("--top", type=int, default=14)
     ap.add_argument("--quantize", default="w8a8",
                     choices=("w8a8", "w6a6", "w4a4"))
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="trace one chunk of the async engine")
+    ap.add_argument("--ops-json", default=None, metavar="PATH")
     args = ap.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import build
+    from repro_torch.launch.serve import build, fail_on_degradation
     from repro_torch.serving.batching import coalesce
 
-    cfg, _, art, engine, sq, _ = build(
-        "dit-xl-2", False, args.quantize, 0, 4, 4, args.steps, 1.5,
-        device="cuda")
-    mb = coalesce(sq.pending, 4, (args.steps,))[0]
-    engine.run_microbatch(mb)                   # warm-up: builds, caches
+    if args.async_mode:        # a chain long enough for two chunks
+        cfg, _, art, engine, sq, _ = build(
+            "dit-xl-2", False, args.quantize, 0, 4, 4, 3 * args.steps, 1.5,
+            device="cuda", async_kw=dict(chunk=args.steps, pipeline=1))
+        for r in sq.pending:
+            engine.submit_request(r)
+        run = engine.pump
+    else:
+        cfg, _, art, engine, sq, _ = build(
+            "dit-xl-2", False, args.quantize, 0, 4, 4, args.steps, 1.5,
+            device="cuda")
+        mb = coalesce(sq.pending, 4, (args.steps,))[0]
+        run = lambda: engine.run_microbatch(mb)
+    run()                                       # warm-up: builds, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run_microbatch(mb)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if args.async_mode:
+        fail_on_degradation(engine)
     by_name = collections.Counter()
     calls = collections.Counter()
     for e in prof.events():
@@ -54,8 +75,10 @@ def main(argv=None) -> None:
     dev_us = sum(by_name.values())
     n = args.steps
     smi = torch.cuda.get_device_name(0)
-    print(f"card: {smi}; {args.quantize}, {cfg.n_layers} layers, d "
-          f"{cfg.d_model}, 2B = 8 rows per forward, {n} steps traced")
+    print(f"card: {smi}; {args.quantize}"
+          f"{' async chunk' if args.async_mode else ''}, {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, 2B = 8 rows per forward, {n} steps "
+          "traced")
     print(f"per step: wall {wall / n * 1e3:.3f} ms, device "
           f"{dev_us / n / 1e3:.3f} ms, idle share "
           f"{1 - dev_us / 1e6 / wall:.3f}" if dev_us else
@@ -63,6 +86,22 @@ def main(argv=None) -> None:
     for name, us in by_name.most_common(args.top):
         print(f"  {us / n / 1e3:9.3f} ms/step {100 * us / dev_us:5.1f}% "
               f"{calls[name] // n:5d} calls/step  {name[:90]}")
+    host, hcalls = collections.Counter(), collections.Counter()
+    for ka in prof.key_averages():
+        if ka.device_type == torch.autograd.DeviceType.CPU:
+            host[ka.key] += ka.self_cpu_time_total
+            hcalls[ka.key] += ka.count
+    print(f"host per step: {sum(hcalls.values()) / n:.1f} ops, self CPU "
+          f"{sum(host.values()) / n / 1e3:.3f} ms; cudaLaunchKernel "
+          f"{hcalls['cudaLaunchKernel'] / n:.1f} calls")
+    for name, us in host.most_common(args.top):
+        print(f"  {us / n / 1e3:9.3f} ms/step host {hcalls[name] / n:8.2f} "
+              f"calls/step  {name[:80]}")
+    if args.ops_json:
+        per = lambda c, t: {k: [c[k] / n, t[k] / n / 1e3] for k in t}
+        with open(args.ops_json, "w") as f:
+            json.dump({"host": per(hcalls, host),
+                       "device": per(calls, by_name)}, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,16 @@ flash MRQ attention; w4a4: packed-int4 linears and packed-kv flash).
   python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w4a4 \\
       --requests 8 --microbatch 4 --steps 20 --cfg-scale 1.5
 
+``--async`` serves the same requests through ``AsyncServeEngine``'s
+continuous-batching slot pool (``--chunk`` steps per dispatch, the
+per-row-group kernels B6a/B6b/B7a/B7b/B8 under a quantized context;
+``--deadline-ms``, ``--max-retries``); its samples equal the sync
+engine's bit for bit, and a serve that took a rung of the degradation
+ladder exits non-zero.
+
 ``--smoke`` uses the tiny config; ``--device cpu`` runs the plain
-versions on the CPU. ``--load-artifact``/``--save-artifact``, ``--async``,
-``--dp`` and the LM branch wait for later slices.
+versions on the CPU. ``--load-artifact``/``--save-artifact``, ``--dp``
+and the LM branch wait for later slices.
 """
 from __future__ import annotations
 
@@ -36,16 +43,20 @@ def fake_quant_fallback_warning(artifact):
 
 
 def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
-          microbatch: int, steps: int, cfg_scale: float, device=None):
+          microbatch: int, steps: int, cfg_scale: float, device=None,
+          async_kw=None):
     """Model, artifact (or None), engine and scheduler for one serve —
-    the launcher's whole set-up, shared with ``chip_smoke.py``."""
+    the launcher's whole set-up, shared with ``chip_smoke.py``. With
+    ``async_kw`` (``chunk``, ``max_retries``, ``deadline_s``, ...) the
+    engine is an ``AsyncServeEngine``; the scheduler's queue then holds
+    the requests to submit to it."""
     import torch
 
     from repro_torch.configs import dit_xl_2
     from repro_torch.device import resolve_device
     from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
     from repro_torch.models.dit import dit_init
-    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
     from repro_torch.serving.scheduler import RequestScheduler
 
     if arch != "dit-xl-2":
@@ -73,9 +84,15 @@ def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
         if msg is not None:
             warnings.warn(msg, RuntimeWarning, stacklevel=2)
         ctx = artifact.context()
-    engine = ServeEngine(params, cfg, dif, sched, ctx=ctx,
-                         microbatch=microbatch, step_buckets=(steps,),
-                         device=dev)
+    if async_kw is not None:
+        engine = AsyncServeEngine(params, cfg, dif, sched, ctx=ctx,
+                                  microbatch=microbatch,
+                                  step_buckets=(steps,), device=dev,
+                                  **async_kw)
+    else:
+        engine = ServeEngine(params, cfg, dif, sched, ctx=ctx,
+                             microbatch=microbatch, step_buckets=(steps,),
+                             device=dev)
     gen = torch.Generator().manual_seed(seed + 1)
     labels = torch.randint(0, cfg.n_classes, (requests,), generator=gen)
     sq = RequestScheduler(microbatch=microbatch, step_buckets=(steps,),
@@ -120,17 +137,40 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "versions)")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="serve through the continuous-batching slot pool "
+                         "(AsyncServeEngine: chunked dispatches, NaN "
+                         "quarantine, deadlines); samples equal the sync "
+                         "path's bit for bit")
+    ap.add_argument("--chunk", type=int, default=4,
+                    help="async: denoising steps per dispatch (the "
+                         "admission and cancellation granularity)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="async: per-request deadline; a request not done "
+                         "by a chunk boundary past it is CANCELLED")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="async: NaN-quarantine retries per request before "
+                         "a structured FAILED outcome")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     import numpy as np
 
+    async_kw = None
+    if args.async_mode:
+        async_kw = dict(chunk=args.chunk, max_retries=args.max_retries,
+                        deadline_s=(None if args.deadline_ms is None
+                                    else args.deadline_ms / 1e3))
     cfg, _, artifact, engine, sq, info = build(
         args.arch, args.smoke, args.quantize, args.seed, args.requests,
-        args.microbatch, args.steps, args.cfg_scale, device=args.device)
+        args.microbatch, args.steps, args.cfg_scale, device=args.device,
+        async_kw=async_kw)
     if artifact is not None:
         print(f"range-calibrated {artifact.summary()} in "
               f"{info['calib_s']:.1f}s")
+    if args.async_mode:
+        _serve_async(engine, sq, args)
+        return
     t0 = time.perf_counter()
     results = sq.run(engine)
     dt = time.perf_counter() - t0
@@ -145,6 +185,45 @@ def main(argv=None) -> None:
           f"{st['microbatches']} microbatches, {st['padded_slots']} padded "
           "slots")
     print(f"sample mean={samples.mean():.4f} std={samples.std():.4f}")
+
+
+def _serve_async(engine, sq, args) -> None:
+    """Submit the scheduler's queued requests to the async engine, drain
+    it, and print the reference launcher's async summary lines."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    for r in sq.pending:
+        engine.submit_request(r)
+    outcomes = engine.run_until_drained()
+    dt = time.perf_counter() - t0
+    ok = {r: o for r, o in outcomes.items() if o.status == "OK"}
+    samples = np.stack([ok[r].sample for r in sorted(ok)])
+    if args.dump_samples is not None:
+        np.save(args.dump_samples, samples)
+        print(f"dumped {samples.shape} samples -> {args.dump_samples}")
+    st, m = engine.stats, engine.metrics()
+    print(f"async-served {len(outcomes)} requests x {args.steps} steps "
+          f"(chunk={args.chunk}) on {engine.device} in {dt:.2f}s: "
+          f"{m['by_status']}, goodput {m['goodput_rps']:.2f} ok/s, "
+          f"latency p50/p99 {m['latency_p50_s']:.2f}/"
+          f"{m['latency_p99_s']:.2f}s, queue-wait p50 "
+          f"{m['queue_wait_p50_s']:.2f}s")
+    print(f"{st['dispatches']} dispatches, {st['chunk_traces']} chunk "
+          f"trace(s), {st['retries']} retries, "
+          f"{len(st['degradations'])} degradations")
+    print(f"sample mean={samples.mean():.4f} std={samples.std():.4f}")
+    fail_on_degradation(engine)
+
+
+def fail_on_degradation(engine) -> None:
+    """Exit non-zero when the async engine stepped down its ladder: a
+    serve that left its context did not serve what was asked."""
+    deg = engine.stats["degradations"]
+    if deg:
+        raise SystemExit(f"{len(deg)} degradation(s) on {engine.device}: "
+                         + "; ".join(f"{d['reason']} ({d['error']})"
+                                     for d in deg))
 
 
 if __name__ == "__main__":

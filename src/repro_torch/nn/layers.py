@@ -38,7 +38,7 @@ def sincos_2d(d, grid_h, grid_w) -> np.ndarray:
 def timestep_embedding(t, d, max_period=10000.0):
     """DDPM sinusoidal timestep embedding. t: (B,) -> (B, d) float32."""
     half = d // 2
-    freqs = torch.exp(-np.log(max_period)
+    freqs = torch.exp(-float(np.log(max_period))
                       * torch.arange(half, dtype=torch.float32,
                                      device=t.device) / half)
     ang = t.float()[:, None] * freqs[None, :]

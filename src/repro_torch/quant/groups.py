@@ -1,13 +1,17 @@
 """Timestep-group resolution — port of ``repro/quant/groups.py``.
 
 ``resolve_group(g, n_groups)`` clamps a serving-side group into
-``[0, n_groups)`` (None and per-tensor packs resolve to 0);
+``[0, n_groups)`` (None and per-tensor packs resolve to 0); a per-slot
+(B,) group vector (the continuous-batching path) is clamped elementwise
+on its device, with no host read, and stays a tensor;
 ``resolve_group(g, calibrated=...)`` returns the nearest calibrated group
 (ties toward the smaller one) for the calibration side.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 
 def resolve_group(g, n_groups: Optional[int] = None, *,
@@ -20,10 +24,8 @@ def resolve_group(g, n_groups: Optional[int] = None, *,
         raise ValueError("resolve_group: need n_groups (or calibrated=)")
     if g is None or n_groups == 1:
         return 0
-    if getattr(g, "ndim", 0) == 1:
-        raise NotImplementedError(
-            "vector tgroups arrive with the async serving slice "
-            "(ROADMAP queue 1, item 8)")
+    if isinstance(g, torch.Tensor) and g.ndim == 1:
+        return torch.clamp(g.to(torch.int32), 0, n_groups - 1)
     return min(max(int(g), 0), n_groups - 1)
 
 

@@ -10,9 +10,20 @@ bit-exact against its plain version — B1/B2, B4/B5 (also at K = 16 and at
 K groups of 40 rows, which straddle the kernel's 64-deep k tile) and B3
 (the plain version sums each tile's rows in the kernel's order) — and
 B3b (packed kv) equal to unpacked B3 at 4 bits, bit for bit.
+
+The continuous-batching engine equals the sync engine bit for bit on the
+card too (tiny DiT, fp and w8a8 kernel context, mixed step buckets).
+
+The per-row-group kernels B6a, B6b, B7a, B7b and B8 are held three ways,
+each bit for bit (``vec_vs_plain``, ``vec_vs_scalar_kernel``): against
+their plain versions with a mixed group vector; with a constant vector
+against the scalar kernel at that group; and with a mixed vector against
+the scalar kernel run group by group over each group's rows. A group
+entry outside [0, G) reads the nearest group (the kernels clamp it).
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,3 +142,200 @@ def test_flash_packed_kv_equals_unpacked_4bit(dev, S, D):
     with kernels.plain_on_cuda():
         ref = FA.flash_attn_mrq(*args, bits=4, packed_kv=True)
     assert (out - ref).abs().max() <= TOLERANCES["B3_vs_plain"][0]
+
+
+# ---------------------------------------------------------------------------
+# per-row-group kernels (B6a, B6b, B7a, B7b, B8)
+# ---------------------------------------------------------------------------
+def _vec_linear_case(dev, kind, M, K, N, dt, seed):
+    """(scalar wrapper, vec wrapper, positional args without the group,
+    fusion kwargs, G): a fused linear of ``kind`` with G = 3 groups."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, G = 2, 3
+    int4 = kind.startswith("int4")
+    group_k = 40 if int4 else None
+    nk = -(-K // group_k) if int4 else 1
+    x = torch.randn(M, K, device=dev, generator=g).to(dt)
+    s = 0.05 + 0.02 * torch.rand(G, 1, device=dev, generator=g)
+    bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(
+        -(-M // B))[:M].contiguous()
+    kw = {"nm": (torch.randn(B, K, device=dev, generator=g) * 0.1,
+                 torch.randn(B, K, device=dev, generator=g) * 0.1),
+          "gr": (torch.randn(B, N, device=dev, generator=g),
+                 torch.randn(M, N, device=dev, generator=g).to(dt)),
+          "bv": bv, "out_dtype": dt}
+    bias = torch.randn(N, device=dev, generator=g)
+    mrq = kind.endswith("mrq")
+    if int4:
+        codes = torch.randint(-7, 8, (nk * group_k, N), device=dev,
+                              generator=g)
+        codes[K:] = 0
+        w = pack_int4(codes)
+        scale = torch.rand(G, nk, N, device=dev, generator=g) * 1e-2
+        corr = torch.randint(-99, 99, (G, nk, N), device=dev, generator=g,
+                             dtype=torch.int32)
+        kw["group_k"] = group_k
+        fns = ((F4.int4_matmul_mrq_fq, F4.int4_matmul_mrq_fq_vec) if mrq
+               else (F4.int4_matmul_fq, F4.int4_matmul_fq_vec))
+        args = ((x, w, s, s * 8, scale, scale * 2, bias) if mrq else
+                (x, w, s, torch.round(2.0 / s), scale, corr, bias))
+    else:
+        w = torch.randint(-127, 128, (K, N), device=dev, generator=g,
+                          dtype=torch.int8)
+        scale = torch.rand(G, N, device=dev, generator=g) * 1e-3
+        corr = torch.randint(-999, 999, (G, N), device=dev, generator=g,
+                             dtype=torch.int32)
+        fns = ((F8.int8_matmul_mrq_fq, F8.int8_matmul_mrq_fq_vec) if mrq
+               else (F8.int8_matmul_fq, F8.int8_matmul_fq_vec))
+        args = ((x, w, s, s * 2, scale, scale, bias) if mrq else
+                (x, w, s, torch.round(8.0 / s), scale, corr, bias))
+    return fns, args, kw, G
+
+
+def _subset(args, kw, idx):
+    """The linear's operands restricted to rows ``idx`` (x, the residual
+    and the row -> batch map)."""
+    sub_kw = dict(kw)
+    sub_kw["bv"] = kw["bv"][idx].contiguous()
+    sub_kw["gr"] = (kw["gr"][0], kw["gr"][1][idx].contiguous())
+    return (args[0][idx].contiguous(),) + args[1:], sub_kw
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_mrq", "int4", "int4_mrq"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(37, 70, 45), (130, 200, 131)])
+def test_vec_linear_kernels_three_ways(dev, kind, dt, M, K, N):
+    (scalar, vec), args, kw, G = _vec_linear_case(dev, kind, M, K, N, dt,
+                                                  M + K + N)
+    gv = torch.randint(0, G, (M,), device=dev, dtype=torch.int32,
+                       generator=torch.Generator(device=dev).manual_seed(M))
+    for fused in ({k: v for k, v in kw.items() if k in
+                   ("out_dtype", "group_k")}, kw):
+        before = dict(kernels.LAUNCHES)
+        out = vec(*args, gv, **fused)
+        name = vec.__name__
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        with kernels.plain_on_cuda():
+            ref = vec(*args, gv, **fused)
+        assert torch.equal(out, ref), (kind, (out - ref).abs().max())
+        const = vec(*args, torch.full_like(gv, 2), **fused)
+        assert torch.equal(const, scalar(*args, 2, **fused)), kind
+        split = torch.empty_like(out)
+        for grp in range(G):
+            idx = (gv == grp).nonzero()[:, 0]
+            sub_args, sub_kw = (_subset(args, fused, idx) if "bv" in fused
+                                else ((args[0][idx].contiguous(),)
+                                      + args[1:], fused))
+            split[idx] = scalar(*sub_args, grp, **sub_kw)
+        assert torch.equal(out, split), kind
+
+
+@pytest.mark.parametrize("bits,packed_kv", [(8, False), (4, False),
+                                            (4, True)])
+@pytest.mark.parametrize("S,D", [(77, 40), (300, 72)])
+def test_vec_flash_kernel_three_ways(dev, bits, packed_kv, S, D):
+    g = torch.Generator(device=dev).manual_seed(S + D + bits)
+    BH, G, half = 6, 3, 2 ** (bits - 1)
+    q, k, v = (torch.randn(BH, S, D, device=dev, generator=g) * 1.5
+               for _ in range(3))
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=g)
+    s = rate * (3.0 / (half - 1))
+    s1 = rate * (8.0 / S / half)
+    args = (q, k, v, s, s * 1.05, s * s * 1.05 * D ** -0.5, s1, s, s1 * s,
+            s / half)
+    kw = dict(bits=bits, packed_kv=packed_kv)
+    g_qk = torch.tensor([0, 2, 1, 1, 0, 2], dtype=torch.int32, device=dev)
+    g_pv = torch.tensor([1, 1, 0, 2, 2, 0], dtype=torch.int32, device=dev)
+    name = "flash_attn_mrq_vec" + ("_packed_kv" if packed_kv else "")
+    before = kernels.LAUNCHES[name]
+    out = FA.flash_attn_mrq_vec(*args, g_qk, g_pv, **kw)
+    assert kernels.LAUNCHES[name] == before + 1
+    with kernels.plain_on_cuda():
+        ref = FA.flash_attn_mrq_vec(*args, g_qk, g_pv, **kw)
+    assert (out - ref).abs().max() <= TOLERANCES["vec_vs_plain"][0]
+    const = FA.flash_attn_mrq_vec(*args, torch.full_like(g_qk, 2),
+                                  torch.full_like(g_pv, 1), **kw)
+    assert torch.equal(const, FA.flash_attn_mrq(*args, 2, 1, **kw))
+    for b in range(BH):        # each row through the scalar kernel
+        one = tuple(t[b:b + 1].contiguous() for t in (q, k, v)) + args[3:]
+        assert torch.equal(out[b:b + 1], FA.flash_attn_mrq(
+            *one, int(g_qk[b]), int(g_pv[b]), **kw)), b
+
+
+@pytest.mark.parametrize("kind", ["int8", "int8_mrq", "int4", "int4_mrq",
+                                  "flash", "flash_packed_kv"])
+def test_vec_kernels_clamp_out_of_range_groups(dev, kind):
+    """Group entries outside [0, G) read the nearest group: each kernel
+    clamps the index on the device, so no read leaves the stacks, and the
+    output equals the clamped vector's and the plain version's."""
+    if kind.startswith("flash"):
+        g = torch.Generator(device=dev).manual_seed(9)
+        q, k, v = (torch.randn(6, 77, 40, device=dev, generator=g)
+                   for _ in range(3))
+        s = 0.03 + 0.01 * torch.rand(3, 1, device=dev, generator=g)
+        args = (q, k, v, s, s, s * s * 40 ** -0.5, s * 0.01, s,
+                s * s * 0.01, s / 8)
+        kw = dict(bits=4, packed_kv=kind.endswith("packed_kv"))
+        wild = torch.tensor([-1, 3, 0, 2 ** 30, -2 ** 30, 1],
+                            dtype=torch.int32, device=dev)
+        groups = (wild, wild.flip(0))
+        tame = tuple(t.clamp(0, 2) for t in groups)
+        out = FA.flash_attn_mrq_vec(*args, *groups, **kw)
+        assert torch.equal(out, FA.flash_attn_mrq_vec(*args, *tame, **kw))
+        with kernels.plain_on_cuda():
+            ref = FA.flash_attn_mrq_vec(*args, *groups, **kw)
+        assert (out - ref).abs().max() <= TOLERANCES["vec_vs_plain"][0]
+        return
+    (_, vec), args, kw, G = _vec_linear_case(dev, kind, 37, 70, 45,
+                                             torch.float32, 3)
+    wild = torch.tensor([-5, G, 1, 2 ** 30, -2 ** 30], dtype=torch.int32,
+                        device=dev).repeat(8)[:37].contiguous()
+    out = vec(*args, wild, **kw)
+    assert torch.equal(out, vec(*args, wild.clamp(0, G - 1), **kw))
+    with kernels.plain_on_cuda():
+        assert torch.equal(out, vec(*args, wild, **kw))
+
+
+def test_vec_flash_gqa_codes_kv_per_q_row(dev):
+    """rep = 2: each q row's k and v codes take that row's groups (kv is
+    repeated over the q rows before coding), as the plain version does."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(4, 70, 40, device=dev, generator=g)
+    k, v = (torch.randn(2, 70, 40, device=dev, generator=g) for _ in "kv")
+    s = torch.tensor([[0.02], [0.03]], device=dev)
+    args = (q, k, v, s, s, s * s * 40 ** -0.5, s * 0.01, s, s * s * 0.01,
+            s / 128)
+    gq = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    out = FA.flash_attn_mrq_vec(*args, gq, 1 - gq)
+    with kernels.plain_on_cuda():
+        ref = FA.flash_attn_mrq_vec(*args, gq, 1 - gq)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("quantize", ["none", "w8a8", "w4a4"])
+def test_async_engine_matches_sync_on_the_card(dev, quantize):
+    """The slot pool's per-slot schedule gathers and the sync sampler's
+    host scalars must round alike on CUDA (whose division by a host
+    scalar multiplies by its reciprocal): samples bit for bit."""
+    from repro_torch.diffusion.ddpm import DiffusionCfg
+    from repro_torch.launch.serve import build
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
+    cfg, params, art, _, _, _ = build("dit-xl-2", True, quantize, 0, 1, 2,
+                                      4, 1.5, device="cuda")
+    dif = DiffusionCfg(T=1000)
+    ctx = art.context() if art is not None else None
+    reqs = [GenRequest(request_id=i, label=i % 8, steps=(4, 6)[i % 2],
+                       cfg_scale=1.5, seed=40 + i) for i in range(5)]
+    kw = dict(ctx=ctx, microbatch=2, step_buckets=(4, 6), device="cuda")
+    ref = ServeEngine(params, cfg, dif, **kw).serve(reqs)
+    before = dict(kernels.LAUNCHES)
+    out = AsyncServeEngine(params, cfg, dif, chunk=3, **kw).serve(reqs)
+    for rid, o in out.items():
+        assert o.status == "OK"
+        assert np.array_equal(o.sample, ref[rid].sample), rid
+    if quantize != "none":
+        assert kernels.LAUNCHES["flash_attn_mrq_vec" + (
+            "_packed_kv" if quantize == "w4a4" else "")] > before[
+            "flash_attn_mrq_vec" + ("_packed_kv" if quantize == "w4a4"
+                                    else "")]

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import ptq as jptq
+from repro.core.contexts import RecordingContext as JRecordingContext
 from repro.diffusion import DiffusionCfg as JDiffusionCfg
 from repro.kernels import int4_packed as jint4
 from repro.kernels import ops as jops
@@ -38,6 +40,7 @@ from repro.models.dit import dit_apply as jdit_apply
 from repro.quant import QuantRecipe as JQuantRecipe, quantize as jquantize
 from repro.serving import GenRequest as JGenRequest
 from repro.serving import ServeEngine as JServeEngine
+from repro.serving import quickcal as jquickcal
 from repro_torch.diffusion.ddpm import DiffusionCfg
 from repro_torch.kernels import flash_attn_mrq as FA
 from repro_torch.kernels import int4_packed as F4
@@ -305,6 +308,19 @@ def _jax_oracles(monkeypatch):
         monkeypatch.setattr(jops, name, fn)
 
 
+class _PinnedRecordingContext(JRecordingContext):
+    """The reference's recorder with its marked tensors kept alive, so a
+    freed post-GELU tensor's ``id`` cannot pass its mark to a later
+    linear's input (ROADMAP queue 3): the artifact's packs do not depend
+    on allocation order."""
+
+    pinned: list = []            # shared by the per-layer context copies
+
+    def act(self, name, x, kind):
+        self.pinned.append(x)
+        return super().act(name, x, kind)
+
+
 @pytest.fixture(scope="module", params=["w4a4", "w6a6"])
 def low_bits(request, tiny_dit, tmp_path_factory):
     """(bits, jax cfg, jax params, port cfg, port params, jax artifact,
@@ -312,8 +328,11 @@ def low_bits(request, tiny_dit, tmp_path_factory):
     jcfg, jp = tiny_dit
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     dif = JDiffusionCfg(T=1000, tgq_groups=4)
-    jart = jquantize(jp, jcfg, dif, JQuantRecipe(
-        bits=request.param, n_per_group=2, calib_batch=2))
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jptq, jquickcal):
+            mp.setattr(mod, "RecordingContext", _PinnedRecordingContext)
+        jart = jquantize(jp, jcfg, dif, JQuantRecipe(
+            bits=request.param, n_per_group=2, calib_batch=2))
     path = str(tmp_path_factory.mktemp("art") / request.param)
     jart.save(path)
     tart = QuantArtifact.load(path, device="cpu", params=tp)

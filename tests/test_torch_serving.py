@@ -250,10 +250,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny):
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
+    from repro_torch.diffusion import ddpm
+    from repro_torch.serving.engine import AsyncServeEngine
     _, _, tcfg, tp = tiny
+    dif = DiffusionCfg(T=40, tgq_groups=4)
+    sched = make_schedule(dif)
+    slot = ddpm.make_slot_schedule(dif, sched, (4,), device="cpu")
+    z = torch.zeros(2, dtype=torch.int64)
     for call in (lambda: resolve_device(),
                  lambda: dit_init(0, tcfg),
                  lambda: ServeEngine(tp, tcfg, DiffusionCfg()),
-                 lambda: QuantArtifact.load("/nonexistent")):
+                 lambda: AsyncServeEngine(tp, tcfg, DiffusionCfg()),
+                 lambda: QuantArtifact.load("/nonexistent"),
+                 lambda: ddpm.ddpm_sample_paired(
+                     None, dif, sched, (2, 8, 8, 4), [0, 1], [0, 1],
+                     [1.0, 1.0], null_label=8, steps=4),
+                 lambda: ddpm.make_slot_schedule(dif, sched, (4,)),
+                 lambda: ddpm.ddpm_init_latent(0, 4, (8, 8, 4)),
+                 lambda: ddpm.ddpm_chunk_slots(
+                     None, dif, slot, torch.zeros(2, 8, 8, 4), z, z, z, z,
+                     torch.ones(2), null_label=8, chunk=1)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
