@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
-and continuous-batching, on one NVIDIA GPU.
+and continuous-batching, flash and composed attention, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -19,7 +19,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              (bits 8), B7a/B7b and B8 (bits 8, and 4 with packed kv) in
              bf16 with a mixed group vector (one group per slot), each
              also held bit for bit against its scalar kernel, with a
-             constant vector and group by group; max error and
+             constant vector and group by group; the composed
+             attention chain B9a -> B10a -> B9b and its per-row-group
+             B9c -> B10b -> B9d (bits 8, 6 and 4, bf16; f32 at 8), each
+             kernel against its plain version, the vec ones also against
+             the scalar ones, the scalar chain against B3 within the
+             reference's flash_vs_composed_atol; max error and
              mismatches against the tolerance registry; kernel,
              plain-version and library-call times (CUDA events) beside
              the least time the card could take (bytes at 3.35 TB/s,
@@ -45,7 +50,16 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              forwards and no scalar launch, and one chunk dispatch run
              under ``torch.cuda.set_sync_debug_mode("error")`` (the chunk
              never blocks the host); prints ms/step and req/s (at W8A8
-             for pipeline 1 too).
+             for pipeline 1 too). Each width is then served again with
+             ``attn_impl="composed"``: the sync 8 requests (zero flash
+             launches, B9a/B10a/B9b = 28 x forwards, one full-width
+             forward on the kernels equal to the plain versions) and the
+             async mix (samples equal the sync composed engine's,
+             B9c/B10b/B9d = 28 x forwards, one chunk under
+             ``set_sync_debug_mode("error")``); at W8A8 one injected
+             dispatch fault steps the flash async engine to the composed
+             rung, which serves every request. Prints flash and composed
+             ms/step and req/s side by side.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -65,6 +79,7 @@ INT8_OPS = 1979e12         # dense int8 tensor-core peak, ops/s
 FP32_OPS = 67e12           # fp32 outside the tensor cores, flop/s
 SOFTMAX_FP32_PER_SCORE = 10  # fp32 ops per score: scale, max, sub, exp,
                              # sum, 2 divides, compare, round, rescale
+CODES_FP32_PER_SCORE = 7     # B10: max, sub, exp, sum, 2 divides, round
 
 
 def log(*a):
@@ -334,6 +349,123 @@ def flash_case(bits, dt, gen, timed, packed_kv=False, vec=False):
     return row
 
 
+COMPOSED = ("int8_bmm_qk", "softmax_mrq_codes", "int8_bmm_pv")
+
+
+def composed_case(bits, dt, gen, timed, vec=False):
+    """B9a -> B10a -> B9b (vec: B9c -> B10b -> B9d) at the DiT-XL/2
+    attention shapes, G = 10 at group 4 (vec: one group per slot), each
+    kernel against its plain version on the same inputs (the kernel's own
+    upstream output); the scalar chain also against B3 within the
+    reference's flash-vs-composed contract; vec kernels also against the
+    scalar ones. Returns {kernel: row}."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attn_mrq as FA
+    from repro_torch.kernels import int8_bmm as IB
+    from repro_torch.kernels import softmax_mrq as SM
+    from repro_torch.kernels.ref import TOLERANCES, flash_vs_composed_atol
+
+    dev = torch.device("cuda")
+    BH, S, D, G, g = 128, 256, 72, 10, 4
+    half = 2 ** (bits - 1)
+    q = (torch.randn(BH, S, D, device=dev, generator=gen) * 1.5).to(dt)
+    k = (torch.randn(BH, S, D, device=dev, generator=gen) * 1.5).to(dt)
+    v = torch.randn(BH, S, D, device=dev, generator=gen).to(dt)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    s_q = rate * (6.0 / (half - 1))
+    s_k = s_q * 1.05
+    qk = (s_q, s_k, s_q * s_k * torch.tensor(D ** -0.5, dtype=torch.float32))
+    s1 = torch.clamp(8.0 * (1.0 / S) / half * rate, 1.0 / (half * half * 8),
+                     1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    pv = (s_v, s1 * s_v, s_v * (1.0 / half))
+    grp = slot_rows(BH, dev) if vec else g
+    sfx = "_vec" if vec else ""
+    fns = ({"int8_bmm_qk": IB.int8_bmm_qk_vec,
+            "softmax_mrq_codes": SM.softmax_mrq_codes_vec,
+            "int8_bmm_pv": IB.int8_bmm_pv_vec} if vec else
+           {"int8_bmm_qk": IB.int8_bmm_qk,
+            "softmax_mrq_codes": SM.softmax_mrq_codes,
+            "int8_bmm_pv": IB.int8_bmm_pv})
+    scalar = {"int8_bmm_qk": IB.int8_bmm_qk,
+              "softmax_mrq_codes": SM.softmax_mrq_codes,
+              "int8_bmm_pv": IB.int8_bmm_pv}
+    scores = codes = None
+    call = {"int8_bmm_qk": lambda f, h: f(q, k, *qk, h, bits=bits),
+            "softmax_mrq_codes": lambda f, h: f(scores, s1, h, bits=bits),
+            "int8_bmm_pv": lambda f, h: f(codes, v, *pv, h, bits=bits,
+                                          out_dtype=dt)}
+    rows, outs = {}, {}
+    for kern in COMPOSED:
+        run = lambda: call[kern](fns[kern], grp)
+        out = run()
+        with kernels.plain_on_cuda():
+            ref = run()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        max_err, n_bad = float(err.max()), int((err > 0).sum())
+        key = "vec_vs_plain" if vec else (
+            "B10_vs_plain" if kern == "softmax_mrq_codes" else "B9_vs_plain")
+        tol = TOLERANCES[key][0]
+        log(f"kernel {kern}{sfx} BH={BH} S={S} hd={D} {str(dt)[6:]} "
+            f"bits={bits}: max_abs_err={max_err} mismatches={n_bad}/"
+            f"{out.numel()} (registry {key}: {tol})")
+        if max_err > tol:
+            raise AssertionError(f"{kern}{sfx} bits={bits} {dt}: max error "
+                                 f"{max_err} > {tol}")
+        if vec:
+            check_vec_against_scalar(
+                kern + sfx, out, lambda gv: call[kern](fns[kern], gv),
+                lambda h: call[kern](scalar[kern], h), grp, g)
+        rows[kern + sfx] = row = {"max_abs_err": max_err}
+        outs[kern] = out
+        if kern == "int8_bmm_qk":
+            scores = out
+        elif kern == "softmax_mrq_codes":
+            codes = out
+        if timed:
+            row["ms"] = time_ms(run, 50)
+            with kernels.plain_on_cuda():
+                row["plain_ms"] = time_ms(run, 3, warmup=1)
+            esz, nv = q.element_size(), (BH * 4 + 3 * 4 * G if vec else 12)
+            sc = BH * S * S
+            if kern == "int8_bmm_qk":
+                qb, kb = (t.to(torch.bfloat16) for t in (q, k))
+                lib = lambda: torch.bmm(qb, kb.transpose(1, 2))
+                nbytes, i8, f32 = 2 * BH * S * D * esz + sc * 4 + nv, \
+                    2 * sc * D, 0
+            elif kern == "softmax_mrq_codes":
+                lib = lambda: torch.softmax(scores, dim=-1)
+                nbytes, i8, f32 = sc * 4 + sc + nv, 0, \
+                    CODES_FP32_PER_SCORE * sc
+            else:
+                pb = torch.rand(BH, S, S, device=dev, generator=gen).to(
+                    torch.bfloat16)
+                vb = v.to(torch.bfloat16)
+                lib = lambda: torch.bmm(pb, vb)
+                nbytes, i8, f32 = sc + 2 * BH * S * D * esz + nv, \
+                    2 * 2 * sc * D, 0
+            row["library_ms"] = time_ms(lib, 50)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, i8, f32)
+            log(f"  time {kern}{sfx} bits={bits}: kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+    if not vec:                            # the chain against flash (B3)
+        flash = FA.flash_attn_mrq(q, k, v, *qk, s1, *pv, g, g, bits=bits,
+                                  packed_kv=bits == 4, out_dtype=dt)
+        atol = flash_vs_composed_atol({"s_v": s_v}, g, S, bits)
+        diff = float((outs["int8_bmm_pv"].float() - flash.float()).abs().max())
+        log(f"composed chain vs flash_attn_mrq bits={bits} {str(dt)[6:]}: "
+            f"max |diff| {diff:.6f} (flash_vs_composed_atol {atol:.6f})")
+        if not diff <= atol:
+            raise AssertionError(f"composed vs flash bits={bits}: {diff} > "
+                                 f"{atol}")
+    return rows
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -369,6 +501,15 @@ def phase_kernels():
                                              vec=True)]
     rows["flash_attn_mrq_vec_packed_kv"] = [flash_case(
         4, torch.bfloat16, gen, True, packed_kv=True, vec=True)]
+    # the composed attention chain (B9a, B10a, B9b) and its per-row-group
+    # siblings (B9c, B10b, B9d); timed at bits 8, bf16
+    for bits in (8, 6, 4):
+        for vec in (False, True):
+            for name, r in composed_case(bits, torch.bfloat16, gen,
+                                         bits == 8, vec=vec).items():
+                rows.setdefault(name, []).append(r)
+    for name, r in composed_case(8, torch.float32, gen, False).items():
+        rows[name].append(r)
     merged = {}
     for name, rs in rows.items():
         m = next(r for r in rs if "ms" in r).copy()
@@ -443,9 +584,7 @@ def serve_width(bits):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels.ref import TOLERANCES
     from repro_torch.launch.serve import build
-    from repro_torch.models.dit import dit_apply
 
     requests, microbatch, steps = 8, 4, 20
     t0 = time.perf_counter()
@@ -456,6 +595,7 @@ def serve_width(bits):
         f"{art.summary()}")
     if art.fallback_ops():
         raise AssertionError(f"{bits} fallback ops: {art.fallback_ops()}")
+    reqs = list(sq.pending)
     torch.cuda.synchronize()
     kernels.reset_launches()               # the main path's run starts here
     t1 = time.perf_counter()
@@ -481,24 +621,87 @@ def serve_width(bits):
         f"{dt / forwards * 1e3:.3f} ms/step (2B={2 * microbatch} forward); "
         f"setup+calib {t1 - t0:.1f} s; sample mean {samples.mean():.5f} "
         f"std {samples.std():.5f}")
+    TIMES[(bits, "flash", "sync 8x20")] = (dt / forwards * 1e3,
+                                           requests / dt)
+    forward_vs_plain(bits, cfg, params, art.context())
+    return launches, cfg, params, art, reqs, samples
+
+
+def forward_vs_plain(bits, cfg, params, ctx):
+    """One full-width forward on the kernels against the same forward on
+    the plain versions, on the card."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.models.dit import dit_apply
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn(8, cfg.img_size, cfg.img_size, cfg.in_ch, device="cuda",
                     generator=gen)
     t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
     y = torch.arange(8, device="cuda") % cfg.n_classes
-    ctx = art.context().with_tgroup(5)
+    ctx = ctx.with_tgroup(5)
     with torch.no_grad():
         out_k = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
         with kernels.plain_on_cuda():
             out_p = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
     rel = float((out_k - out_p).norm() / out_p.norm())
     tol = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
-    log(f"full width {bits} forward, kernels vs plain versions on the card: "
-        f"rel L2 {rel:.3e} (registry {tol})")
+    log(f"full width {bits} {ctx.attn_impl} forward, kernels vs plain "
+        f"versions on the card: rel L2 {rel:.3e} (registry {tol})")
     if not rel <= tol:
-        raise AssertionError(f"{bits} forward rel error {rel} > {tol}")
-    return launches, cfg, params, art
+        raise AssertionError(f"{bits} {ctx.attn_impl} forward rel error "
+                             f"{rel} > {tol}")
+
+
+TIMES = {}     # (width, attn_impl, serve) -> (ms/step, req/s), this run
+
+
+def serve_composed(bits, cfg, params, art, reqs, flash_samples):
+    """The sync serve of ``serve_width`` (same params, artifact and 8
+    requests x 20 steps) on ``attn_impl="composed"``: every attention
+    block through B9a -> B10a -> B9b, no flash launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving.engine import ServeEngine
+
+    steps = reqs[0].steps
+    eng = ServeEngine(params, cfg, art.dif_cfg(),
+                      ctx=art.context(attn_impl="composed"), microbatch=4,
+                      step_buckets=(steps,), device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()               # the composed run starts here
+    t0 = time.perf_counter()
+    results = eng.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)      # ... and ends here
+    samples = np.stack([results[r.request_id].sample for r in reqs])
+    if samples.shape != flash_samples.shape or not np.isfinite(
+            samples).all():
+        raise AssertionError(f"bad {bits} composed samples {samples.shape}")
+    forwards = eng.stats["microbatches"] * steps
+    want = {k: 0 for k in launches}
+    want.update({k: n * forwards
+                 for k, n in art.packed_counts("composed").items()})
+    log(f"full width {bits} composed: forwards {forwards}, launches "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"{bits} composed launch counts {launches} != "
+                             f"packed x forwards {want}")
+    drift = float(np.abs(samples - flash_samples).mean()
+                  / np.abs(flash_samples).mean())
+    log(f"full width {bits} composed: served {len(reqs)} requests x {steps} "
+        f"steps in {dt:.3f} s: {len(reqs) / dt:.4f} req/s, "
+        f"{dt / forwards * 1e3:.3f} ms/step; samples vs flash's: mean|d| / "
+        f"mean|flash| {drift:.6f}")
+    TIMES[(bits, "composed", "sync 8x20")] = (dt / forwards * 1e3,
+                                              len(reqs) / dt)
+    forward_vs_plain(bits, cfg, params, art.context(attn_impl="composed"))
+    return launches
 
 
 def vec_key(kern):
@@ -508,42 +711,60 @@ def vec_key(kern):
     return kern + "_vec"
 
 
-def serve_async(bits, cfg, params, art):
+def async_mix(cfg):
+    """The continuous-batching request mix: 12 requests alternating 10
+    and 20 steps, CFG 1.5."""
+    import torch
+
+    from repro_torch.serving.batching import GenRequest
+    n_req = 12
+    gen = torch.Generator().manual_seed(11)
+    labels = torch.randint(0, cfg.n_classes, (n_req,), generator=gen)
+    return [GenRequest(request_id=i, label=int(labels[i]),
+                       steps=(10, 20)[i % 2], cfg_scale=1.5, seed=500 + i)
+            for i in range(n_req)]
+
+
+ASYNC_KW = dict(microbatch=4, step_buckets=(10, 20), device="cuda")
+
+
+def serve_async(bits, cfg, params, art, attn_impl="flash"):
     """The continuous-batching engine at full width, on ``serve_width``'s
-    params and artifact (no new calibration)."""
+    params and artifact (no new calibration), attention through
+    ``attn_impl``. Returns the async path's launches and the sync
+    engine's results on the same mix."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
-    from repro_torch.serving.batching import GenRequest, coalesce
+    from repro_torch.serving.batching import coalesce
     from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
 
-    n_req = 12
-    gen = torch.Generator().manual_seed(11)
-    labels = torch.randint(0, cfg.n_classes, (n_req,), generator=gen)
-    reqs = [GenRequest(request_id=i, label=int(labels[i]),
-                       steps=(10, 20)[i % 2], cfg_scale=1.5, seed=500 + i)
-            for i in range(n_req)]
-    kw = dict(microbatch=4, step_buckets=(10, 20), device="cuda")
+    reqs = async_mix(cfg)
+    n_req = len(reqs)
+    kw = ASYNC_KW
     # engines besides the main run skip from_artifact's params hash
     same = (params, cfg, art.dif_cfg())
-    sync = ServeEngine(*same, ctx=art.context(), **kw)
+    ctx = art.context(attn_impl=attn_impl)
+    sync = ServeEngine(*same, ctx=ctx, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = sync.serve(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     f = sum(mb.steps for mb in coalesce(reqs, 4, (10, 20)))    # forwards
-    log(f"sync {bits} on the same {n_req} requests: {dt:.3f} s, "
+    log(f"sync {bits} {attn_impl} on the same {n_req} requests: {dt:.3f} s, "
         f"{n_req / dt:.4f} req/s, {dt / f * 1e3:.3f} ms/step over {f} "
         f"forwards ({sync.stats['padded_slots']} padded slots)")
+    TIMES[(bits, attn_impl, "sync 12 mixed")] = (dt / f * 1e3, n_req / dt)
     launches = None
-    for pipeline in (2, 1) if bits == "w8a8" else (2,):
+    for pipeline in (2, 1) if (bits, attn_impl) == ("w8a8", "flash") \
+            else (2,):
         eng = (AsyncServeEngine.from_artifact(params, art, chunk=4,
                                               pipeline=2, **kw)
-               if pipeline == 2 else
-               AsyncServeEngine(*same, ctx=art.context(), chunk=4,
-                                pipeline=1, **kw))
+               if (pipeline, attn_impl) == (2, "flash") else
+               AsyncServeEngine(*same, ctx=ctx, chunk=4, pipeline=pipeline,
+                                **kw))
         torch.cuda.synchronize()
         if pipeline == 2:
             kernels.reset_launches()       # the async path's run starts here
@@ -567,8 +788,12 @@ def serve_async(bits, cfg, params, art):
                                  f"{n_diff} samples differ from the sync "
                                  "engine's")
         f = st["forwards"]
-        log(f"async {bits} pipeline={pipeline}: {n_req} requests (10/20 "
-            f"steps, chunk 4, microbatch 4, cfg 1.5) in {dt:.3f} s: "
+        if pipeline == 2:
+            TIMES[(bits, attn_impl, "async 12 mixed")] = (dt / f * 1e3,
+                                                          n_req / dt)
+        log(f"async {bits} {attn_impl} pipeline={pipeline}: {n_req} "
+            f"requests (10/20 steps, chunk 4, microbatch 4, cfg 1.5) in "
+            f"{dt:.3f} s: "
             f"{n_req / dt:.4f} req/s, {dt / f * 1e3:.3f} ms/step over "
             f"{f} forwards ({st['dispatches']} dispatches, {st['ahead']} "
             f"of them dispatched ahead; the 180 slot-steps asked fill "
@@ -576,16 +801,15 @@ def serve_async(bits, cfg, params, art):
             "equal the sync engine's bit for bit")
         if pipeline == 2:
             want = {k: 0 for k in launches}
-            for k, n in art.packed_counts().items():
+            for k, n in art.packed_counts(attn_impl).items():
                 want[vec_key(k)] = n * f
-            log(f"async {bits}: launches {launches}")
+            log(f"async {bits} {attn_impl}: launches {launches}")
             if launches != want:
                 raise AssertionError(f"async {bits} launch counts "
                                      f"{launches} != packed x forwards "
                                      f"{want}")
     # one chunk dispatch with host synchronisation made an error
-    eng = AsyncServeEngine(*same, ctx=art.context(), chunk=4, pipeline=1,
-                           **kw)
+    eng = AsyncServeEngine(*same, ctx=ctx, chunk=4, pipeline=1, **kw)
     for r in reqs[:4]:
         eng.submit_request(r)
     eng._admit()
@@ -600,8 +824,47 @@ def serve_async(bits, cfg, params, art):
     if pos.tolist() != [4] * 4 or bool(bad.any()):
         raise AssertionError(f"async {bits} chunk: pos {pos.tolist()}, "
                              f"bad {bad.tolist()}")
-    log(f"async {bits}: one chunk (4 steps x 4 slots) dispatched under "
-        "torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+    log(f"async {bits} {attn_impl}: one chunk (4 steps x 4 slots) "
+        "dispatched under torch.cuda.set_sync_debug_mode('error'): no host "
+        "synchronisation")
+    return launches, ref
+
+
+def ladder_check(bits, cfg, params, art, composed_ref):
+    """One injected dispatch fault on the flash async engine: the ladder
+    steps to the composed rung (once, logged) and serves every request
+    there, equal to the sync composed engine bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving.engine import AsyncServeEngine
+    from repro_torch.serving.faults import Fault, FaultInjector
+
+    reqs = async_mix(cfg)
+    inj = FaultInjector([Fault(kind="dispatch_error", at_dispatch=1)])
+    eng = AsyncServeEngine(params, cfg, art.dif_cfg(), ctx=art.context(),
+                           chunk=4, pipeline=2, injector=inj, **ASYNC_KW)
+    torch.cuda.synchronize()
+    kernels.reset_launches()               # the ladder's run starts here
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)      # ... and ends here
+    deg = eng.stats["degradations"]
+    bad = {r: o.status for r, o in out.items() if o.status != "OK"}
+    n_diff = sum(not np.array_equal(o.sample, composed_ref[r].sample)
+                 for r, o in out.items())
+    comp = {k: launches[k + "_vec"] for k in COMPOSED}
+    log(f"ladder {bits}: one injected dispatch fault -> {len(deg)} "
+        f"degradation(s) {[d['reason'] for d in deg]}; {len(out)} requests, "
+        f"not OK {bad}; composed vec launches {comp}; {n_diff} samples "
+        "differ from the sync composed engine's")
+    if (bad or len(out) != len(reqs) or n_diff or eng.ctx.attn_impl !=
+            "composed" or [d["reason"] for d in deg] !=
+            ["flash attention -> composed three-kernel chain"]
+            or not all(comp.values())):
+        raise AssertionError(f"ladder {bits}: the composed rung did not "
+                             "serve every request")
     return launches
 
 
@@ -609,14 +872,28 @@ def phase_serve():
     import torch
 
     total = {}
-    for bits in WIDTHS:
-        launches, cfg, params, art = serve_width(bits)
+
+    def add(launches):
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
-        for k, n in serve_async(bits, cfg, params, art).items():
-            total[k] = total.get(k, 0) + n
+    for bits in WIDTHS:
+        launches, cfg, params, art, reqs, samples = serve_width(bits)
+        add(launches)
+        add(serve_composed(bits, cfg, params, art, reqs, samples))
+        add(serve_async(bits, cfg, params, art)[0])
+        launches, composed_ref = serve_async(bits, cfg, params, art,
+                                             "composed")
+        add(launches)
+        if bits == "w8a8":
+            add(ladder_check(bits, cfg, params, art, composed_ref))
         del params, art
         torch.cuda.empty_cache()
+    log("serve times in this run, flash beside composed (ms/step, req/s):")
+    for bits in WIDTHS:
+        for serve in ("sync 8x20", "sync 12 mixed", "async 12 mixed"):
+            f, c = (TIMES[(bits, a, serve)] for a in ("flash", "composed"))
+            log(f"  {bits} {serve}: flash {f[0]!r} ms/step {f[1]!r} req/s; "
+                f"composed {c[0]!r} ms/step {c[1]!r} req/s")
     return total
 
 
@@ -673,7 +950,20 @@ def main() -> int:
                    "src/repro_torch/csrc/int4_packed.cu",
                    "src/repro/kernels/int4_packed.py:589"),
                "flash_attn_mrq_vec": flash_vec,
-               "flash_attn_mrq_vec_packed_kv": flash_vec}
+               "flash_attn_mrq_vec_packed_kv": flash_vec,
+               "int8_bmm_qk": ("src/repro_torch/csrc/int8_bmm.cu",
+                               "src/repro/kernels/int8_bmm.py:145"),
+               "softmax_mrq_codes": ("src/repro_torch/csrc/softmax_mrq.cu",
+                                     "src/repro/kernels/softmax_mrq.py:143"),
+               "int8_bmm_pv": ("src/repro_torch/csrc/int8_bmm.cu",
+                               "src/repro/kernels/int8_bmm.py:240"),
+               "int8_bmm_qk_vec": ("src/repro_torch/csrc/int8_bmm.cu",
+                                   "src/repro/kernels/int8_bmm.py:299"),
+               "softmax_mrq_codes_vec": (
+                   "src/repro_torch/csrc/softmax_mrq.cu",
+                   "src/repro/kernels/softmax_mrq.py:199"),
+               "int8_bmm_pv_vec": ("src/repro_torch/csrc/int8_bmm.cu",
+                                   "src/repro/kernels/int8_bmm.py:349")}
     idle = [k for k in sources if not launches.get(k)]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -184,12 +184,12 @@ class QuantContext(OpContext):
     ``kernels.ops.LINEAR_PACKS`` through that pack's wrapper (``int8`` ->
     B1, ``int8_mrq`` -> B2, ``int4`` -> B4, ``int4_mrq`` -> B5) and
     attention blocks whose ``/qk`` and ``/pv`` qparams carry ``int8_qk`` /
-    ``int8_pv`` packs through B3 (``attn_impl`` 'flash'; the composed
-    chain is a later slice and raises ``NotImplementedError``, which the
-    async engine's degradation ladder steps past). A vector ``tgroup``
-    reaches the ``_vec`` siblings of those kernels. Ops without a pack
-    take the fake-quant path (``QuantArtifact.fallback_ops`` lists
-    them)."""
+    ``int8_pv`` packs through one flash kernel (``attn_impl`` 'flash':
+    B3, B3b at 4 bits) or the composed three-kernel chain ('composed':
+    B9a -> B10a -> B9b, the async ladder's middle rung); any other
+    ``attn_impl`` raises ``ValueError``. A vector ``tgroup`` reaches the
+    ``_vec`` siblings of those kernels. Ops without a pack take the
+    fake-quant path (``QuantArtifact.fallback_ops`` lists them)."""
     qparams: Dict[str, dict] = dataclasses.field(default_factory=dict)
     kernel: bool = False
     attn_impl: str = "flash"
@@ -261,13 +261,16 @@ class QuantContext(OpContext):
             pv_qp = self.qparams.get(f"{name}/pv") or {}
             if (qk_qp.get("int8_qk") is not None
                     and pv_qp.get("int8_pv") is not None):
-                if self.attn_impl != "flash":
-                    raise NotImplementedError(
-                        f"attn_impl={self.attn_impl!r}: the composed "
-                        "attention chain is a later slice (ROADMAP queue 1, "
-                        "item 9)")
                 from repro_torch.kernels import ops as kops
-                return kops.flash_attention(
+                if self.attn_impl == "flash":
+                    return kops.flash_attention(
+                        q, k, v, qk_qp["int8_qk"], pv_qp["int8_pv"],
+                        mask=mask, scale=scale, tgroup=self.tgroup)
+                if self.attn_impl != "composed":
+                    raise ValueError(
+                        f"QuantContext.attn_impl must be 'flash' or "
+                        f"'composed', got {self.attn_impl!r}")
+                return kops.int8_attention(
                     q, k, v, qk_qp["int8_qk"], pv_qp["int8_pv"], mask=mask,
                     scale=scale, tgroup=self.tgroup)
         return OpContext.attention(self, name, q, k, v, mask=mask,

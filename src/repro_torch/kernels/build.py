@@ -28,7 +28,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("int8_fused", "int4_packed", "flash_attn_mrq")
+SOURCES = ("int8_fused", "int4_packed", "flash_attn_mrq", "int8_bmm",
+           "softmax_mrq")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -102,6 +103,19 @@ _SIGNATURES = {
         # v8t | B M N D rep half packed_kv x_bf16 out_bf16 vec Gq Gp |
         # stream
         "flash_attn_mrq_launch": [_P] * 16 + [_I] * 12 + [_P],
+    },
+    "int8_bmm": {
+        # q k s_q s_k scale g out q8 k8 | B M N D rep half x_bf16 out_bf16
+        # gs G | stream
+        "int8_bmm_qk_launch": [_P] * 9 + [_I] * 10 + [_P],
+        # codes v s_v scale1 scale2 g out v8t | B M N D rep half x_bf16
+        # out_bf16 gs G | stream
+        "int8_bmm_pv_launch": [_P] * 8 + [_I] * 10 + [_P],
+    },
+    "softmax_mrq": {
+        # scores s1 g out | R (long) | C rpg half x_bf16 gs G | stream
+        "softmax_mrq_codes_launch": [_P] * 4 + [ctypes.c_long] + [_I] * 6
+                                    + [_P],
     },
 }
 

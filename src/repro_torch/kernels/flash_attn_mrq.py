@@ -38,7 +38,7 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.int8_fused import (
-    _DT, _need, clamp_groups, is_vec, row_groups,
+    _DT, _need, clamp_groups, is_vec, repeat_batch, row_groups,
 )
 
 MAX_HEAD_DIM = 128
@@ -59,22 +59,12 @@ def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
         out_dtype=out_dtype, packed_kv=packed_kv)
 
 
-def _repeat_kv(k, v, B):
-    """k, v (Bk, N, D) -> (B, N, D): kv row j serves q rows j*rep ..
-    (j+1)*rep - 1 (expand, no host read)."""
-    Bk = k.shape[0]
-    if Bk == B:
-        return k, v
-    return tuple(t[:, None].expand((Bk, B // Bk) + tuple(t.shape[1:]))
-                 .reshape((B,) + tuple(t.shape[1:])) for t in (k, v))
-
-
 def flash_attn_mrq_vec_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
                              scale2, g_qk=None, g_pv=None, *, bits=8,
                              packed_kv=False, out_dtype=torch.float32):
     """Plain version of B8: ``ref.flash_attn_mrq_vec_ref`` with kv gathered
     per q batch row."""
-    k, v = _repeat_kv(k, v, q.shape[0])
+    k, v = repeat_batch(k, q.shape[0]), repeat_batch(v, q.shape[0])
     return ref.flash_attn_mrq_vec_ref(
         q, k, v, {"s_q": s_q, "s_k": s_k, "scale": qk_scale},
         {"s1": s1, "s_v": s_v, "scale1": scale1, "scale2": scale2},
@@ -125,7 +115,7 @@ def flash_attn_mrq_vec(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
         return flash_attn_mrq_vec_plain(
             q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2, g_qk, g_pv,
             bits=bits, packed_kv=packed_kv, out_dtype=out_dtype)
-    k, v = _repeat_kv(k, v, B)
+    k, v = repeat_batch(k, B), repeat_batch(v, B)
     return _launch(q, k, v, (s_q, s_k, qk_scale, s1, s_v, scale1, scale2),
                    (g_qk, g_pv), bits, packed_kv, out_dtype)
 

@@ -53,6 +53,17 @@ def row_groups(gv, M: int, dev):
     return gv.to(torch.int32).contiguous()
 
 
+def repeat_batch(t, B: int):
+    """(Bk, ...) -> (B, ...): batch row j serves rows j*rep .. (j+1)*rep
+    - 1 (expand, no host read). The ``_vec`` attention kernels code kv
+    per q row, so under GQA each q row gets its own kv copy."""
+    Bk = t.shape[0]
+    if Bk == B:
+        return t
+    return t[:, None].expand((Bk, B // Bk) + tuple(t.shape[1:])) \
+        .reshape((B,) + tuple(t.shape[1:]))
+
+
 def clamp_groups(gv, G: int):
     """A plain version's group vector clamped into [0, G), as the kernels
     clamp each index they read."""

@@ -8,19 +8,20 @@ plain/TGQ-uniform linear an ``int8`` pack at 8 or 6 bits (-> B1
 ``int4_matmul_fq``); per MRQ-signed-input linear an ``int8_mrq`` (-> B2
 ``int8_matmul_mrq_fq``) or ``int4_mrq`` pack (-> B5
 ``int4_matmul_mrq_fq``); and the ``int8_qk`` / ``int8_pv`` packs per
-attention block (-> B3 ``flash_attn_mrq``, packed kv at 4 bits: B3b).
+attention block (-> B3 ``flash_attn_mrq``, packed kv at 4 bits: B3b; or,
+under ``attn_impl="composed"``, the three-kernel chain B9a
+``int8_bmm_qk`` -> B10a ``softmax_mrq_codes`` -> B9b ``int8_bmm_pv``).
 Activation-side parameters are stacked along a leading (G,) TGQ group
 axis; the kernels read the group's row themselves.
 
 ``tgroup`` is a scalar group (one per forward: the sync sampler) or a
 per-slot (B,) int32 device vector (the continuous-batching slot pool):
-then each wrapper calls the ``*_vec`` kernel (B6a, B6b, B7a, B7b, B8)
-with one group per matmul row (batch·head row in attention), so one
-launch serves slots at different timesteps and the weights stream once.
-A pack whose groups resolve to a scalar (G = 1) beside a vector sibling
-rides along as a constant vector. The vector never leaves the device.
-
-Not ported yet (ROADMAP queue 1, item 9): the composed attention chain.
+then each wrapper calls the ``*_vec`` kernel (B6a, B6b, B7a, B7b, B8;
+B9c, B10b, B9d in the composed chain) with one group per matmul row
+(batch·head row in attention), so one launch serves slots at different
+timesteps and the weights stream once. A pack whose groups resolve to a
+scalar (G = 1) beside a vector sibling rides along as a constant vector.
+The vector never leaves the device.
 """
 from __future__ import annotations
 
@@ -39,11 +40,17 @@ from repro_torch.kernels.int4_packed import (
     int4_matmul_fq, int4_matmul_fq_vec, int4_matmul_mrq_fq,
     int4_matmul_mrq_fq_vec,
 )
+from repro_torch.kernels.int8_bmm import (
+    int8_bmm_pv, int8_bmm_pv_vec, int8_bmm_qk, int8_bmm_qk_vec,
+)
 from repro_torch.kernels.int8_fused import (
     int8_matmul_fq, int8_matmul_fq_vec, int8_matmul_mrq_fq,
     int8_matmul_mrq_fq_vec, cached_layout, is_vec,
 )
-from repro_torch.kernels.ref import _ceil, pack_int4
+from repro_torch.kernels.ref import NEG_INF, _ceil, pack_int4
+from repro_torch.kernels.softmax_mrq import (
+    softmax_mrq_codes, softmax_mrq_codes_vec,
+)
 from repro_torch.quant.groups import resolve_group
 
 # The linear packs, in dispatch order: (pack key, wrapper in this module,
@@ -462,6 +469,66 @@ def int4_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                    _MRQ, {"group_k": pack["group_k"]})
 
 
+def _flatten_heads(q, k, v):
+    """q (B, Sq, Hk, G, hd) -> (B·Hk·G, Sq, hd) and k, v (B, Skv, Hk, hd)
+    -> (B·Hk, Skv, hd): slot-major batch·head rows; GQA stays unmaterialised
+    (q row r reads kv row r // G)."""
+    B, Sq, Hk, G, hd = q.shape
+    Skv = k.shape[1]
+    return (q.permute(0, 2, 3, 1, 4).reshape(B * Hk * G, Sq, hd),
+            k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd),
+            v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd))
+
+
+def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
+                   scale=1.0, tgroup=None, out_dtype=None):
+    """int8 grouped SDPA as the composed three-kernel chain (B9a -> B10a
+    -> B9b; B9c -> B10b -> B9d for a group vector): the exactness oracle
+    beside flash, ``attn_impl="composed"``.
+
+    Same contract and packs as :func:`flash_attention`: q (B, Sq, Hk, G,
+    hd); k, v (B, Skv, Hk, hd); mask broadcastable to (B, Hk, G, Sq, Skv)
+    boolean or None, applied to the f32 scores between B9a and B10a;
+    ``scale`` folds into the QK^T dequant scale (once, on the host).
+    Returns (B, Sq, Hk, G, hd) in ``out_dtype`` (q's dtype by default).
+    The probabilities travel from B10a to B9b as int8 region-signed
+    codes. With a per-slot (B,) ``tgroup``, the packs' (B·Hk·G,) row
+    vectors come from ``_groups`` (built once per forward); B10b reads
+    its row's entry at ``row // Sq``."""
+    out_dtype = out_dtype or q.dtype
+    B, Sq, Hk, G, hd = q.shape
+    Skv = k.shape[1]
+    BHG = B * Hk * G
+    qf, kf, vf = _flatten_heads(q, k, v)
+    g_qk = _groups(qk_pack, tgroup, BHG)
+    g_pv = _groups(pv_pack, tgroup, BHG)
+    vec = is_vec(g_qk) or is_vec(g_pv)
+    qk_bits = int(qk_pack.get("bits", 8))
+    pv_bits = int(pv_pack.get("bits", 8))
+    qk_args = (qf, kf, qk_pack["s_q"], qk_pack["s_k"],
+               qk_pack["scale"] * float(np.float32(scale)))
+    pv_params = (pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"])
+    if vec:
+        g_qk, g_pv = (_as_vec(g, BHG, q.device) for g in (g_qk, g_pv))
+        scores = int8_bmm_qk_vec(*qk_args, gv=g_qk, bits=qk_bits)
+    else:
+        scores = int8_bmm_qk(*qk_args, g=g_qk, bits=qk_bits)
+    if mask is not None:
+        scores = torch.where(mask, scores.reshape(B, Hk, G, Sq, Skv),
+                             NEG_INF).reshape(BHG, Sq, Skv)
+    if vec:
+        codes = softmax_mrq_codes_vec(scores, pv_pack["s1"], gv=g_pv,
+                                      bits=pv_bits)
+        out = int8_bmm_pv_vec(codes, vf, *pv_params, gv=g_pv, bits=pv_bits,
+                              out_dtype=out_dtype)
+    else:
+        codes = softmax_mrq_codes(scores, pv_pack["s1"], g=g_pv,
+                                  bits=pv_bits)
+        out = int8_bmm_pv(codes, vf, *pv_params, g=g_pv, bits=pv_bits,
+                          out_dtype=out_dtype)
+    return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)
+
+
 def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                     scale=1.0, tgroup=None, out_dtype=None):
     """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3;
@@ -476,11 +543,8 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
             "masked flash attention is not on the DiT serving path")
     out_dtype = out_dtype or q.dtype
     B, Sq, Hk, G, hd = q.shape
-    Skv = k.shape[1]
     BHG = B * Hk * G
-    qf = q.permute(0, 2, 3, 1, 4).reshape(BHG, Sq, hd)
-    kf = k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
-    vf = v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
+    qf, kf, vf = _flatten_heads(q, k, v)
     bits = int(qk_pack.get("bits", 8))
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)

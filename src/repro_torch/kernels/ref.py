@@ -2,9 +2,10 @@
 tolerance registry.
 
 Torch ports of the serving-path entries of ``repro/kernels/ref.py`` (the
-byte-code and packed-int4 linears, flash attention, and the per-row-group
-``*_vec`` oracles of the continuous-batching path) and of the nibble
-helpers of ``repro/kernels/int4_packed.py``. Each
+byte-code and packed-int4 linears, flash attention, the composed int8
+attention chain, and the per-row-group ``*_vec`` oracles of the
+continuous-batching path) and of the nibble helpers of
+``repro/kernels/int4_packed.py``. Each
 ``*_ref`` computes exactly what the corresponding kernel must produce, op
 for op and rounding step for rounding step (``torch.round`` rounds half
 to even as ``jnp.round`` does; every multiply and add is its own torch
@@ -51,10 +52,19 @@ TOLERANCES = {
     "B3b_vs_B3": (0.0, "packed kv holds the same 4-bit codes two per "
                   "byte; the kernel widens them before the same "
                   "arithmetic, so only the storage differs"),
-    "vec_vs_plain": (0.0, "B6a/B6b/B7a/B7b/B8 run their scalar siblings' "
-                     "arithmetic with each row's (batch row's) group "
-                     "read from the vector; the plain versions gather "
-                     "the same rows"),
+    "B9_vs_plain": (0.0, "B9a/B9b: SymQ codes round once per element in "
+                    "both (IEEE divide, rint), the s32 products are "
+                    "exact, and the epilogue rounds each step in the "
+                    "plain version's order (acc*scale; acc1*scale1 + "
+                    "acc2*scale2)"),
+    "B10_vs_plain": (0.0, "B10a: the plain version takes the same max, the "
+                     "same exp (the card's expf through torch.exp), sums "
+                     "each row in the kernel's order (warp_rowsum) and "
+                     "divides as IEEE; the codes are then identical"),
+    "vec_vs_plain": (0.0, "B6a/B6b/B7a/B7b/B8/B9c/B9d/B10b run their scalar "
+                     "siblings' arithmetic with each row's (batch row's) "
+                     "group read from the vector; the plain versions "
+                     "gather the same rows"),
     "vec_vs_scalar_kernel": (0.0, "a constant vector, or each group's rows "
                              "run through the scalar kernel at that "
                              "group, computes every output element with "
@@ -85,6 +95,26 @@ TOLERANCES = {
         1e-3, "torch and XLA sum the layernorm mean/var in different "
         "orders and differ in rsqrt by an ulp; a code sitting on a "
         ".5 boundary flips"),
+    "B9_plain_vs_jax": (0.0, "B9a/B9b: the same f32 divide, round, exact "
+                        "integer products and f32 epilogue op for op "
+                        "(eager jnp oracles)"),
+    "B10_code_flip_rate_vs_jax": (
+        1e-4, "XLA sums each softmax row in another order than the port "
+        "(warp_rowsum, the kernel's order) and its exp may differ by an "
+        "ulp: p differs by ulps, and a code whose p / s sits on a .5 "
+        "boundary (or p on the region threshold) flips; at most 1e-4 of "
+        "the codes may differ (1 in 6.6e6 seen on the CPU)"),
+    "B10_flip_prob_steps": (1.0, "a flipped code moves its dequantised "
+                            "probability by at most one coarse region step "
+                            "s2 = 1/half (region 1's step s1 <= s2)"),
+    "composed_flipped_row_rate": (
+        0.01, "each output row of the composed chain sums one softmax row's "
+        "codes: a row carries a flip when any of its Skv codes flipped "
+        "(B10_code_flip_rate_vs_jax); at most 1% of the rows (every other "
+        "row is bit-exact: the rest of the chain is B9_plain_vs_jax)"),
+    "composed_atol_steps": (2.0, "a flipped code moves an output by at "
+                            "most one coarse region step x max|v code| "
+                            "(s2 * s_v * (half-1)); bound: two such steps"),
     # whole forwards
     "dit_forward_plain_vs_jax_rel": (2e-2, "ulp differences (gelu, "
                                      "softmax, layernorm stats) flip a few "
@@ -410,6 +440,117 @@ def flash_attn_mrq_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=0,
 
 
 # ---------------------------------------------------------------------------
+# composed int8 attention: B9a (QK^T) -> B10a (softmax -> codes) -> B9b (P.V)
+# ---------------------------------------------------------------------------
+def warp_rowsum(e):
+    """Row sums of (..., C) in the softmax-codes kernel's order
+    (``csrc/softmax_mrq.cu``): lane t of a warp adds columns t, t + 32,
+    ... in ascending order from 0 (padding columns add 0), then five
+    butterfly steps ``p[t] + p[t ^ o]``, o = 16, 8, 4, 2, 1, add the
+    lanes' partials (float addition commutes, so every lane ends with the
+    same sum)."""
+    C = e.shape[-1]
+    Cp = -32 * (-C // 32)
+    t = torch.nn.functional.pad(e, (0, Cp - C))
+    t = t.reshape(e.shape[:-1] + (Cp // 32, 32))
+    p = t[..., 0, :]
+    for j in range(1, Cp // 32):
+        p = p + t[..., j, :]
+    lanes = torch.arange(32, device=e.device)
+    for o in (16, 8, 4, 2, 1):
+        p = p + p[..., lanes ^ o]
+    return p[..., :1]
+
+
+def int8_bmm_qk_core(q, k, sq, sk, sc, bits: int, out_dtype=torch.float32):
+    """``(q8 @ k8^T) * sc`` over (B, M, D) x (B, N, D); sq, sk, sc 0-d or
+    (B, 1, 1) per-batch-row columns."""
+    q8 = sym_quantize_int8_ref(q, sq, bits)
+    k8 = sym_quantize_int8_ref(k, sk, bits)
+    return (imatmul(q8, k8.transpose(-1, -2)).float() * sc).to(out_dtype)
+
+
+def softmax_mrq_codes_core(scores, s1, bits: int):
+    """Row softmax (last axis; the kernel's max, exp and row-sum order)
+    then region-signed int8 codes against ``s1`` (0-d, or one step per
+    row as a (..., 1) column)."""
+    half = 2 ** (bits - 1)
+    x = scores.float()
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    p = e / warp_rowsum(e)
+    s2 = 1.0 / half
+    q1 = torch.clamp(torch.round(p / s1), 0, half - 1)
+    q2 = torch.clamp(torch.round(p / s2), 0, half)
+    return torch.where(p < half * s1, q1, -q2).to(torch.int8)
+
+
+def int8_bmm_pv_core(codes, v, sv, sc1, sc2, bits: int,
+                     out_dtype=torch.float32):
+    """``(c1 @ v8) * sc1 + (c2 @ v8) * sc2`` with ``c1 = max(c, 0)``,
+    ``c2 = max(-c, 0)`` over (B, M, N) codes and (B, N, D) v."""
+    c = codes.to(torch.int32)
+    c1 = torch.clamp(c, min=0)
+    c2 = torch.clamp(-c, min=0)
+    v8 = sym_quantize_int8_ref(v, sv, bits)
+    y = imatmul(c1, v8).float() * sc1 + imatmul(c2, v8).float() * sc2
+    return y.to(out_dtype)
+
+
+def int8_bmm_qk_ref(q, k, s_q, s_k, scale, g=0, bits: int = 8,
+                    out_dtype=torch.float32):
+    """Batched symmetric QK^T oracle (q and k batches equal); s_q, s_k,
+    scale (G, 1), scale the combined ``s_q[g] * s_k[g] * alpha``."""
+    return int8_bmm_qk_core(q, k, s_q[g][0], s_k[g][0], scale[g][0], bits,
+                            out_dtype)
+
+
+def softmax_mrq_codes_ref(scores, s1, g=0, bits: int = 8):
+    """Row softmax then region-signed codes: c >= 0 a region-1 code (step
+    s1[g]), c < 0 the negated region-2 code (step s2 = 1/half)."""
+    return softmax_mrq_codes_core(scores, s1[g][0], bits)
+
+
+def mrq_codes_decode_ref(codes, s1, g=0, bits: int = 8):
+    """Region-signed prob codes back to fp probabilities."""
+    half = 2 ** (bits - 1)
+    c = codes.float()
+    return torch.where(c >= 0, c * s1[g][0], -c * (1.0 / half))
+
+
+def int8_bmm_pv_ref(codes, v, s_v, scale1, scale2, g=0, bits: int = 8,
+                    out_dtype=torch.float32):
+    """Batched dual-region P.V oracle (codes and v batches equal);
+    scale1 = s1[g] * s_v[g], scale2 = s2 * s_v[g]."""
+    return int8_bmm_pv_core(codes, v, s_v[g][0], scale1[g][0], scale2[g][0],
+                            bits, out_dtype)
+
+
+def int8_attention_ref(q, k, v, qk_pack, pv_pack, mask=None, scale=1.0,
+                       g=0, bits: int = 8, out_dtype=torch.float32):
+    """The composed chain over FLATTENED (B, S, hd) operands: symmetric
+    QK^T -> mask -> softmax-to-codes -> dual-region P.V."""
+    scores = int8_bmm_qk_ref(q, k, qk_pack["s_q"], qk_pack["s_k"],
+                             qk_pack["scale"] * scale, g=g, bits=bits)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    codes = softmax_mrq_codes_ref(scores, pv_pack["s1"], g=g, bits=bits)
+    return int8_bmm_pv_ref(codes, v, pv_pack["s_v"], pv_pack["scale1"],
+                           pv_pack["scale2"], g=g, bits=bits,
+                           out_dtype=out_dtype)
+
+
+def flash_vs_composed_atol(pv_pack, g, n_kv: int, bits: int = 8) -> float:
+    """The reference's flash-vs-composed contract (worst case): both
+    paths dequantise each probability within one coarse step s2 of the
+    other, and an output element sums ``n_kv`` of them against values of
+    magnitude <= (half - 1) * s_v[g]:
+    ``n_kv * s2 * (half - 1) * s_v[g]``."""
+    half = 2 ** (bits - 1)
+    s_v = float(pv_pack["s_v"][g][0])
+    return n_kv * (1.0 / half) * (half - 1) * s_v
+
+
+# ---------------------------------------------------------------------------
 # per-row-group oracles (vector tgroup): the ``*_vec`` kernels B6a, B6b,
 # B7a, B7b and B8 of the continuous-batching slot pool. Row i of a linear
 # (batch row b of flash) takes the parameters of group gv[i] (g[b]),
@@ -546,3 +687,50 @@ def flash_attn_mrq_vec_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=None,
         col(pv_pack["s_v"], g_pv), col(pv_pack["scale1"], g_pv),
         col(pv_pack["scale2"], g_pv), bits, bn=bn, out_dtype=out_dtype,
         packed_kv=packed_kv)
+
+
+def _batch_col(t, gv):
+    """Rows ``gv`` of a (G, 1) stack as a (B, 1, 1) per-batch-row column."""
+    return t[gv].reshape(-1, 1, 1)
+
+
+def int8_bmm_qk_vec_ref(q, k, s_q, s_k, scale, gv=None, bits: int = 8,
+                        out_dtype=torch.float32):
+    """B9a with batch row b at group gv[b] (q and k batches equal)."""
+    gv = _row_groups(gv, q.shape[0], q.device)
+    return int8_bmm_qk_core(q, k, _batch_col(s_q, gv), _batch_col(s_k, gv),
+                            _batch_col(scale, gv), bits, out_dtype)
+
+
+def softmax_mrq_codes_vec_ref(scores, s1, gv=None, bits: int = 8):
+    """B10a with one group per row: gv has shape ``scores.shape[:-1]``."""
+    if gv is None:
+        gv = torch.zeros(scores.shape[:-1], dtype=torch.int64,
+                         device=scores.device)
+    return softmax_mrq_codes_core(scores, s1[gv.long()], bits)
+
+
+def int8_bmm_pv_vec_ref(codes, v, s_v, scale1, scale2, gv=None,
+                        bits: int = 8, out_dtype=torch.float32):
+    """B9b with batch row b at group gv[b] (codes and v batches equal)."""
+    gv = _row_groups(gv, codes.shape[0], codes.device)
+    return int8_bmm_pv_core(codes, v, _batch_col(s_v, gv),
+                            _batch_col(scale1, gv), _batch_col(scale2, gv),
+                            bits, out_dtype)
+
+
+def int8_attention_vec_ref(q, k, v, qk_pack, pv_pack, mask=None, scale=1.0,
+                           gv=None, bits: int = 8, out_dtype=torch.float32):
+    """The composed chain with batch row b at group gv[b] (both packs),
+    over FLATTENED (B, S, hd) operands."""
+    B, M, _ = q.shape
+    gv = _row_groups(gv, B, q.device)
+    scores = int8_bmm_qk_vec_ref(q, k, qk_pack["s_q"], qk_pack["s_k"],
+                                 qk_pack["scale"] * scale, gv=gv, bits=bits)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    codes = softmax_mrq_codes_vec_ref(scores, pv_pack["s1"],
+                                      gv=gv[:, None].expand(B, M), bits=bits)
+    return int8_bmm_pv_vec_ref(codes, v, pv_pack["s_v"], pv_pack["scale1"],
+                               pv_pack["scale2"], gv=gv, bits=bits,
+                               out_dtype=out_dtype)

@@ -1,7 +1,8 @@
 """Where a serving step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--quantize w8a8|w6a6|w4a4] [--steps 4] [--async]
+        [--quantize w8a8|w6a6|w4a4] [--steps 4] [--async] \
+        [--attn-impl flash|composed]
 
 Builds the full-width DiT-XL/2 serve of ``launch/serve.py`` (range
 calibration, microbatch 4 -> CFG 2B = 8 rows per forward), runs one
@@ -9,7 +10,9 @@ warm-up microbatch, then traces a second one with ``torch.profiler`` and
 prints, per denoising step: the wall time, the device time summed over
 the CUDA kernels, the idle share (1 - device / wall), and the kernels by
 device time — the port's own (``quantize_kernel``, ``gemm_kernel``,
-``gemm4_kernel``, ``codes_kernel``, ``flash_kernel``) and the PyTorch glue
+``gemm4_kernel``, ``codes_kernel``, ``flash_kernel``; under
+``--attn-impl composed`` ``qk_kernel``, ``softmax_codes_kernel`` and
+``pv_kernel`` in its place) and the PyTorch glue
 around them — and the host side: the ops by self CPU time (the torch
 operators and the CUDA runtime calls the host makes for them), with
 their calls per step. ``--async`` traces one chunk of ``--steps`` steps
@@ -35,6 +38,10 @@ def main(argv=None) -> None:
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="trace one chunk of the async engine")
     ap.add_argument("--ops-json", default=None, metavar="PATH")
+    ap.add_argument("--attn-impl", default=None,
+                    choices=("flash", "composed"),
+                    help="attention lowering (unset keeps the recipe's "
+                         "default, flash)")
     args = ap.parse_args(argv)
 
     import torch
@@ -46,14 +53,15 @@ def main(argv=None) -> None:
     if args.async_mode:        # a chain long enough for two chunks
         cfg, _, art, engine, sq, _ = build(
             "dit-xl-2", False, args.quantize, 0, 4, 4, 3 * args.steps, 1.5,
-            device="cuda", async_kw=dict(chunk=args.steps, pipeline=1))
+            device="cuda", async_kw=dict(chunk=args.steps, pipeline=1),
+            attn_impl=args.attn_impl)
         for r in sq.pending:
             engine.submit_request(r)
         run = engine.pump
     else:
         cfg, _, art, engine, sq, _ = build(
             "dit-xl-2", False, args.quantize, 0, 4, 4, args.steps, 1.5,
-            device="cuda")
+            device="cuda", attn_impl=args.attn_impl)
         mb = coalesce(sq.pending, 4, (args.steps,))[0]
         run = lambda: engine.run_microbatch(mb)
     run()                                       # warm-up: builds, caches
@@ -75,7 +83,7 @@ def main(argv=None) -> None:
     dev_us = sum(by_name.values())
     n = args.steps
     smi = torch.cuda.get_device_name(0)
-    print(f"card: {smi}; {args.quantize}"
+    print(f"card: {smi}; {args.quantize} {art.recipe.attn_impl}"
           f"{' async chunk' if args.async_mode else ''}, {cfg.n_layers} "
           f"layers, d {cfg.d_model}, 2B = 8 rows per forward, {n} steps "
           "traced")

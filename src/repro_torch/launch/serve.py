@@ -5,6 +5,9 @@ bucketed, padded, CFG-paired) and served by ``ServeEngine`` on one GPU;
 ``--quantize w8a8|w6a6|w4a4 --calib range`` range-calibrates on the card
 and serves through the CUDA kernels (w8a8 and w6a6: fused int8 linears and
 flash MRQ attention; w4a4: packed-int4 linears and packed-kv flash).
+``--attn-impl composed`` records the composed three-kernel attention
+chain in the recipe instead (B9a -> B10a -> B9b; unset keeps the
+recipe's default, flash).
 
   python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w4a4 \\
       --requests 8 --microbatch 4 --steps 20 --cfg-scale 1.5
@@ -44,12 +47,14 @@ def fake_quant_fallback_warning(artifact):
 
 def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
           microbatch: int, steps: int, cfg_scale: float, device=None,
-          async_kw=None):
+          async_kw=None, attn_impl=None):
     """Model, artifact (or None), engine and scheduler for one serve —
     the launcher's whole set-up, shared with ``chip_smoke.py``. With
     ``async_kw`` (``chunk``, ``max_retries``, ``deadline_s``, ...) the
     engine is an ``AsyncServeEngine``; the scheduler's queue then holds
-    the requests to submit to it."""
+    the requests to submit to it. ``attn_impl`` ('flash' or 'composed';
+    None keeps the recipe's default) goes into the calibration recipe,
+    whose context the engine serves."""
     import torch
 
     from repro_torch.configs import dit_xl_2
@@ -73,9 +78,11 @@ def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
         from repro_torch.quant.api import quantize as run_quantize
         from repro_torch.quant.recipe import QuantRecipe
         t0 = time.perf_counter()
+        attn_kw = {} if attn_impl is None else {"attn_impl": attn_impl}
         artifact = run_quantize(params, cfg, dif,
                                 QuantRecipe(bits=quantize, method="range",
-                                            seed=seed), sched=sched,
+                                            seed=seed, **attn_kw),
+                                sched=sched,
                                 provenance={"arch": arch, "smoke": smoke})
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -133,6 +140,12 @@ def main(argv=None) -> None:
     ap.add_argument("--quantize", default="none",
                     choices=("none", "w8a8", "w6a6", "w4a4"))
     ap.add_argument("--calib", default="range", choices=("range",))
+    ap.add_argument("--attn-impl", default=None,
+                    choices=("flash", "composed"),
+                    help="attention lowering: 'flash' = one fused CUDA "
+                         "kernel (default; no (S,S) HBM round-trip), "
+                         "'composed' = the three-kernel exactness oracle. "
+                         "Unset keeps the recipe/artifact default")
     ap.add_argument("--dump-samples", default=None, metavar="NPY")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
@@ -164,10 +177,11 @@ def main(argv=None) -> None:
     cfg, _, artifact, engine, sq, info = build(
         args.arch, args.smoke, args.quantize, args.seed, args.requests,
         args.microbatch, args.steps, args.cfg_scale, device=args.device,
-        async_kw=async_kw)
+        async_kw=async_kw, attn_impl=args.attn_impl)
     if artifact is not None:
         print(f"range-calibrated {artifact.summary()} in "
-              f"{info['calib_s']:.1f}s")
+              f"{info['calib_s']:.1f}s; attention "
+              f"{artifact.recipe.attn_impl}")
     if args.async_mode:
         _serve_async(engine, sq, args)
         return

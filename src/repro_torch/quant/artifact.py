@@ -83,14 +83,21 @@ class QuantArtifact:
                 out.append(name)
         return out
 
-    def packed_counts(self) -> Dict[str, int]:
+    def packed_counts(self, attn_impl: Optional[str] = None
+                      ) -> Dict[str, int]:
         """Ops packed per serving kernel, keyed as ``kernels.LAUNCHES``
         (one launch each per forward): a linear counts under its pack's
-        kernel, an attention block under ``flash_attn_mrq`` or, at 4 bits,
-        ``flash_attn_mrq_packed_kv``."""
+        kernel; an attention block under ``flash_attn_mrq`` or, at 4 bits,
+        ``flash_attn_mrq_packed_kv`` — or, under ``attn_impl`` 'composed'
+        (None: the recipe's), once under each of ``int8_bmm_qk``,
+        ``softmax_mrq_codes`` and ``int8_bmm_pv``."""
         counts = {kern: sum(key in qp for qp in self.qparams.values())
                   for key, _, kern in LINEAR_PACKS}
         qk = [qp["int8_qk"] for qp in self.qparams.values() if "int8_qk" in qp]
+        if (attn_impl or self.recipe.attn_impl) == "composed":
+            for kern in ("int8_bmm_qk", "softmax_mrq_codes", "int8_bmm_pv"):
+                counts[kern] = len(qk)
+            return counts
         packed = sum(int(p.get("bits", 8)) == 4 for p in qk)
         counts["flash_attn_mrq"] = len(qk) - packed
         counts["flash_attn_mrq_packed_kv"] = packed
@@ -147,7 +154,7 @@ class QuantArtifact:
         return DiffusionCfg(**self.meta["dif"])
 
     def summary(self) -> str:
-        c = self.packed_counts()
+        c = self.packed_counts("flash")
         return (f"QuantArtifact({self.recipe.bits}/{self.recipe.method}: "
                 f"{len(self.qparams)} ops, "
                 f"{c['int8_matmul_fq'] + c['int8_matmul_mrq_fq']} int8 and "

@@ -499,8 +499,8 @@ class AsyncServeEngine:
     def _dispatch(self):
         """One chunk dispatch with the degradation ladder and dispatch-ahead.
         Slot state is replaced only after the blocking reads succeed, so a
-        failed dispatch (an unported rung, an injected fault) has no side
-        effect and the same chunk is retried one rung down; a
+        failed dispatch (a fault on the rung's path, an injected fault)
+        has no side effect and the same chunk is retried one rung down; a
         ``KernelError`` is re-raised after failing every live request."""
         while True:
             self.stats["dispatches"] += 1

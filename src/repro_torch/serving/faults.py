@@ -17,12 +17,11 @@ quant (no CUDA kernel at all) — rebuilds the chunk function, and retries
 the SAME chunk (slot state is only mutated after a successful blocking
 read, so a failed dispatch is side-effect free). Each rung trades speed
 for a smaller trusted surface; each step is logged with a reason in
-``engine.stats['degradations']``. The port's composed chain is not
-written yet (ROADMAP queue 1, item 9): a kernel context on the composed
-rung raises ``NotImplementedError`` at its first attention, which the
-engine records as one more failed rung before fake-quant. A kernel that
-does not build or launch (``kernels.build.KernelError``) is never a rung:
-the engine fails its live requests and re-raises it.
+``engine.stats['degradations']``. The composed rung runs the per-slot
+composed chain (B9c -> B10b -> B9d) in place of flash (B8); the linears
+stay on their kernels. A kernel that does not build or launch
+(``kernels.build.KernelError``) is never a rung: the engine fails its
+live requests and re-raises it.
 """
 from __future__ import annotations
 

@@ -20,8 +20,8 @@ against the port's own sync engine, on the CPU.
 - The lifecycle layer, mirroring ``tests/test_async_serving.py`` and
   ``tests/test_chaos.py`` (minus the 2-device pool): admission, queue
   bound, cancel, deadlines under ``FakeClock``, NaN quarantine with a
-  bit-identical retry, sticky poison, the degradation ladder, and
-  ``pipeline`` 1 against 2.
+  bit-identical retry, sticky poison, the degradation ladder (both rungs,
+  and a stop on the composed rung), and ``pipeline`` 1 against 2.
 """
 from __future__ import annotations
 
@@ -600,16 +600,16 @@ def test_sticky_poison_and_slot_error_fail_structured(tiny, sync_ref):
 
 @pytest.mark.parametrize("pipeline", [1, 2])
 def test_degradation_ladder_logs_every_rung(tiny, w8a8, pipeline):
-    """One injected dispatch fault steps flash -> composed; the composed
-    chain is not ported, so the next dispatch raises NotImplementedError
-    at its first attention and steps composed -> fake-quant. Both rungs
-    are logged; every request completes on the bottom rung, equal to the
-    fake-quant sync engine."""
+    """Two injected dispatch faults, on the first chunk and on its retry,
+    take both rungs before any chunk completes: flash -> composed ->
+    fake-quant. Both rungs are logged; every request completes on the
+    bottom rung, equal to the fake-quant sync engine."""
     _, _, _, p = tiny
     ref = ServeEngine.from_artifact(p, w8a8, kernel=False, microbatch=2,
                                     step_buckets=BUCKETS,
                                     device="cpu").serve(REQS[:3])
-    inj = FaultInjector([Fault(kind="dispatch_error", at_dispatch=1)])
+    inj = FaultInjector([Fault(kind="dispatch_error", at_dispatch=1),
+                         Fault(kind="dispatch_error", at_dispatch=2)])
     eng = _engine(tiny, w8a8, chunk=2, injector=inj, pipeline=pipeline)
     assert eng.ctx.kernel and eng.ctx.attn_impl == "flash"
     out = eng.serve(REQS[:3])
@@ -618,9 +618,34 @@ def test_degradation_ladder_logs_every_rung(tiny, w8a8, pipeline):
     assert [d["reason"] for d in deg] == [
         "flash attention -> composed three-kernel chain",
         "fused int8 kernels -> fake-quant (simulated quantization)"]
-    assert "FaultInjected" in deg[0]["error"]
-    assert "NotImplementedError" in deg[1]["error"]
+    assert all("FaultInjected" in d["error"] for d in deg)
+    assert [d for d, _ in inj.fired] == [1, 2]
     assert eng.ctx.kernel is False and eng.stats["chunk_traces"] == 3
+
+
+@pytest.mark.parametrize("pipeline", [1, 2])
+def test_degradation_ladder_stops_on_the_composed_rung(tiny, w8a8, pipeline,
+                                                       monkeypatch):
+    """One injected dispatch fault steps flash -> composed, and the
+    engine stays there: every request completes OK through the per-slot
+    composed chain, equal to the sync engine on the composed context."""
+    _, _, _, p = tiny
+    ref = ServeEngine.from_artifact(p, w8a8, attn_impl="composed",
+                                    microbatch=2, step_buckets=BUCKETS,
+                                    device="cpu").serve(REQS[:3])
+    calls = []
+    real = ops.int8_bmm_qk_vec
+    monkeypatch.setattr(ops, "int8_bmm_qk_vec",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    inj = FaultInjector([Fault(kind="dispatch_error", at_dispatch=1)])
+    eng = _engine(tiny, w8a8, chunk=2, injector=inj, pipeline=pipeline)
+    out = eng.serve(REQS[:3])
+    _assert_equal_samples(out, ref)
+    deg = eng.stats["degradations"]
+    assert [d["reason"] for d in deg] == [
+        "flash attention -> composed three-kernel chain"]
+    assert eng.ctx.kernel and eng.ctx.attn_impl == "composed"
+    assert calls and eng.stats["chunk_traces"] == 2
 
 
 def test_kernel_error_takes_no_rung(tiny, w8a8, monkeypatch):
@@ -665,11 +690,14 @@ def test_serve_launcher_exits_nonzero_on_a_degradation(monkeypatch, capsys):
     assert "0 degradations" in capsys.readouterr().out
 
     def broken(*a, **kw):
-        raise RuntimeError("flash dispatch fault")
+        raise RuntimeError("attention dispatch fault")
     monkeypatch.setattr(ops, "flash_attn_mrq_vec", broken)
+    monkeypatch.setattr(ops, "int8_bmm_qk_vec", broken)
     with pytest.raises(SystemExit, match="2 degradation") as e:
         serve.main(argv)
-    assert e.value.code != 0 and "flash dispatch fault" in str(e.value.code)
+    assert e.value.code != 0 and "attention dispatch fault" in str(
+        e.value.code)
+    assert "composed three-kernel chain" in str(e.value.code)
 
 
 def test_ladder_exhausted_fails_everything_structured(tiny):

@@ -20,6 +20,13 @@ their plain versions with a mixed group vector; with a constant vector
 against the scalar kernel at that group; and with a mixed vector against
 the scalar kernel run group by group over each group's rows. A group
 entry outside [0, G) reads the nearest group (the kernels clamp it).
+
+The composed attention chain: B9a, B10a and B9b bit-exact against their
+plain versions (``B9_vs_plain``, ``B10_vs_plain``; f32 and bf16, ragged
+S, 1-row q, GQA), their per-row-group siblings B9c, B10b and B9d held the
+same three ways, ``ops.int8_attention`` on the card equal to its plain
+composition and within ``flash_vs_composed_atol`` of flash, and a
+refused launch or failed build raising ``KernelError``.
 """
 from __future__ import annotations
 
@@ -30,8 +37,13 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import flash_attn_mrq as FA
 from repro_torch.kernels import int4_packed as F4
+from repro_torch.kernels import int8_bmm as IB
 from repro_torch.kernels import int8_fused as F8
-from repro_torch.kernels.ref import TOLERANCES, pack_int4
+from repro_torch.kernels import ops
+from repro_torch.kernels import softmax_mrq as SM
+from repro_torch.kernels.ref import (
+    TOLERANCES, flash_vs_composed_atol, pack_int4,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -339,3 +351,214 @@ def test_async_engine_matches_sync_on_the_card(dev, quantize):
             "_packed_kv" if quantize == "w4a4" else "")] > before[
             "flash_attn_mrq_vec" + ("_packed_kv" if quantize == "w4a4"
                                     else "")]
+
+
+# ---------------------------------------------------------------------------
+# composed attention: B9a, B10a, B9b and the per-row-group B9c, B10b, B9d
+# ---------------------------------------------------------------------------
+def _composed_case(dev, B, M, S, D, bits, G, seed, rep=1):
+    """q (B*rep, M, D), k and v (B, S, D), the qk params (s_q, s_k,
+    scale), s1 and the pv params (s_v, scale1, scale2), G groups."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    half = 2 ** (bits - 1)
+    q = torch.randn(B * rep, M, D, device=dev, generator=g) * 1.5
+    k, v = (torch.randn(B, S, D, device=dev, generator=g) * 1.5
+            for _ in "kv")
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=g)
+    s_q = rate * (6.0 / (half - 1))
+    s1 = torch.clamp(rate * (8.0 / S / half), 1.0 / (half * half * 8),
+                     1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    qk = (s_q, s_q * 1.05, s_q * s_q * 1.05 * D ** -0.5)
+    return q, k, v, qk, s1, (s_v, s1 * s_v, s_v / half)
+
+
+def _plain(fn):
+    with kernels.plain_on_cuda():
+        return fn()
+
+
+@pytest.mark.parametrize("bits", [8, 6, 4])
+@pytest.mark.parametrize("B,M,S,D,rep", [(3, 77, 77, 40, 1),
+                                         (2, 300, 300, 72, 2),
+                                         (4, 1, 130, 17, 1)])
+def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
+    q, k, v, qk, s1, pv = _composed_case(dev, B, M, S, D, bits, 3,
+                                         M + S + D + bits, rep)
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        before = dict(kernels.LAUNCHES)
+        qk_run = lambda: IB.int8_bmm_qk(qd, kd, *qk, 1, bits=bits)
+        scores = qk_run()
+        assert torch.equal(scores, _plain(qk_run)), (dt, "B9a")
+        for sc in (scores, scores.to(torch.bfloat16)):
+            sm_run = lambda: SM.softmax_mrq_codes(sc, s1, 1, bits=bits)
+            codes = sm_run()
+            assert torch.equal(codes, _plain(sm_run)), (dt, sc.dtype, "B10a")
+        codes = SM.softmax_mrq_codes(scores, s1, 1, bits=bits)
+        pv_run = lambda: IB.int8_bmm_pv(codes, vd, *pv, 1, bits=bits,
+                                        out_dtype=dt)
+        out = pv_run()
+        assert torch.equal(out, _plain(pv_run)), (dt, "B9b")
+        assert out.shape == (B * rep, M, D) and torch.isfinite(out).all()
+        after = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+        assert {n: c for n, c in after.items() if c} == {
+            "int8_bmm_qk": 1, "softmax_mrq_codes": 3, "int8_bmm_pv": 1}
+    assert (TOLERANCES["B9_vs_plain"][0], TOLERANCES["B10_vs_plain"][0]) \
+        == (0.0, 0.0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("S,D,rep", [(77, 40, 1), (300, 72, 2)])
+def test_composed_vec_kernels_three_ways(dev, bits, S, D, rep):
+    """B9c, B10b (compact per-batch-row vector and one group per row) and
+    B9d against their plain versions, against the scalar kernels with a
+    constant vector, and batch row by batch row."""
+    BH, G = 6, 3
+    q, k, v, qk, s1, pv = _composed_case(dev, BH // rep, S, S, D, bits, G,
+                                         S + D + bits, rep)
+    q = q.to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    gv = torch.tensor([0, 2, 1, 1, 0, 2], dtype=torch.int32, device=dev)
+    const = torch.full_like(gv, 2)
+    before = dict(kernels.LAUNCHES)
+    scores = IB.int8_bmm_qk_vec(q, k, *qk, gv, bits=bits)
+    assert torch.equal(scores, _plain(
+        lambda: IB.int8_bmm_qk_vec(q, k, *qk, gv, bits=bits)))
+    assert torch.equal(IB.int8_bmm_qk_vec(q, k, *qk, const, bits=bits),
+                       IB.int8_bmm_qk(q, k, *qk, 2, bits=bits))
+    codes = SM.softmax_mrq_codes_vec(scores, s1, gv, bits=bits)
+    rows = gv[:, None].expand(BH, S).contiguous()
+    assert torch.equal(codes, SM.softmax_mrq_codes_vec(scores, s1, rows,
+                                                       bits=bits))
+    assert torch.equal(codes, _plain(
+        lambda: SM.softmax_mrq_codes_vec(scores, s1, gv, bits=bits)))
+    assert torch.equal(SM.softmax_mrq_codes_vec(scores, s1, const,
+                                                bits=bits),
+                       SM.softmax_mrq_codes(scores, s1, 2, bits=bits))
+    out = IB.int8_bmm_pv_vec(codes, v, *pv, gv, bits=bits,
+                             out_dtype=torch.bfloat16)
+    assert torch.equal(out, _plain(lambda: IB.int8_bmm_pv_vec(
+        codes, v, *pv, gv, bits=bits, out_dtype=torch.bfloat16)))
+    assert torch.equal(
+        IB.int8_bmm_pv_vec(codes, v, *pv, const, bits=bits),
+        IB.int8_bmm_pv(codes, v, *pv, 2, bits=bits))
+    for b in range(BH):        # each batch row through the scalar kernels
+        h, kv = int(gv[b]), slice(b // rep, b // rep + 1)
+        one = q[b:b + 1].contiguous()
+        assert torch.equal(scores[b:b + 1], IB.int8_bmm_qk(
+            one, k[kv].contiguous(), *qk, h, bits=bits)), b
+        assert torch.equal(codes[b:b + 1], SM.softmax_mrq_codes(
+            scores[b:b + 1].contiguous(), s1, h, bits=bits)), b
+        assert torch.equal(out[b:b + 1], IB.int8_bmm_pv(
+            codes[b:b + 1].contiguous(), v[kv].contiguous(), *pv, h,
+            bits=bits, out_dtype=torch.bfloat16)), b
+    for name in ("int8_bmm_qk_vec", "softmax_mrq_codes_vec",
+                 "int8_bmm_pv_vec"):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+def test_composed_vec_kernels_clamp_out_of_range_groups(dev):
+    q, k, v, qk, s1, pv = _composed_case(dev, 6, 77, 77, 40, 8, 3, 21)
+    wild = torch.tensor([-1, 3, 0, 2 ** 30, -2 ** 30, 1], dtype=torch.int32,
+                        device=dev)
+    tame = wild.clamp(0, 2)
+    scores = IB.int8_bmm_qk(q, k, *qk, 0)
+    codes = SM.softmax_mrq_codes(scores, s1, 0)
+    for run in (lambda g: IB.int8_bmm_qk_vec(q, k, *qk, g),
+                lambda g: SM.softmax_mrq_codes_vec(scores, s1, g),
+                lambda g: IB.int8_bmm_pv_vec(codes, v, *pv, g)):
+        out = run(wild)
+        assert torch.equal(out, run(tame))
+        assert torch.equal(out, _plain(lambda: run(wild)))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
+def test_int8_attention_on_the_card(dev, bits, vec):
+    """``ops.int8_attention`` (GQA, ragged S) through the kernels equals
+    its plain composition, with and without a causal mask, and is within
+    the reference's ``flash_vs_composed_atol`` of flash."""
+    B, S, Hk, Gq, D, G = 2, 200, 2, 2, 40, 3
+    q, k, v, qk, s1, pv = _composed_case(dev, B * Hk, Gq * S, S, D, bits, G,
+                                         bits + vec)
+    q = q.reshape(B, Hk, Gq, S, D).permute(0, 3, 1, 2, 4).to(torch.bfloat16)
+    k, v = (t.reshape(B, Hk, S, D).permute(0, 2, 1, 3).to(torch.bfloat16)
+            for t in (k, v))
+    packs = ({"s_q": qk[0], "s_k": qk[1], "scale": qk[0] * qk[1],
+              "groups": G, "bits": bits},
+             {"s1": s1, "s_v": pv[0], "scale1": pv[1], "scale2": pv[2],
+              "groups": G, "bits": bits})
+    tg = torch.tensor([2, 0], dtype=torch.int32, device=dev) if vec else 1
+    kw = dict(scale=D ** -0.5, tgroup=tg)
+    for mask in (None, torch.ones(S, S, dtype=torch.bool,
+                                  device=dev).tril()):
+        run = lambda: ops.int8_attention(q, k, v, *packs, mask=mask, **kw)
+        out = run()
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert torch.equal(out, _plain(run))
+    out = ops.int8_attention(q, k, v, *packs, **kw)
+    flash = ops.flash_attention(q, k, v, *packs, **kw)
+    atol = max(flash_vs_composed_atol(packs[1], g, S, bits)
+               for g in ((2, 0) if vec else (1,)))
+    assert float((out.float() - flash.float()).abs().max()) <= atol
+
+
+def test_composed_refused_launch_and_failed_build_raise(dev, monkeypatch,
+                                                        tmp_path):
+    """A launch the launcher refuses returns a CUDA error that
+    ``build.check`` raises as ``KernelError``; a build that fails raises
+    ``KernelError`` from the wrapper. Nothing falls back."""
+    from repro_torch.kernels import build
+    for name, fn, args in (
+            ("int8_bmm", "int8_bmm_qk_launch", [0] * 9 + [0, 1, 1, 1, 1,
+                                                        128, 0, 0, 0, 1, 0]),
+            ("int8_bmm", "int8_bmm_pv_launch", [0] * 8 + [0, 1, 1, 1, 1,
+                                                        128, 0, 0, 0, 1, 0]),
+            ("softmax_mrq", "softmax_mrq_codes_launch",
+             [0] * 4 + [0, 1, 1, 128, 0, 0, 1, 0])):
+        err = getattr(build.lib(name), fn)(*args)
+        with pytest.raises(build.KernelError, match="CUDA error"):
+            build.check(err, name, fn)
+    q, k, v, qk, s1, pv = _composed_case(dev, 2, 8, 8, 16, 8, 1, 3)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS + ["--no-such-nvcc-flag"])
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(build.KernelError, match="nvcc failed"):
+        IB.int8_bmm_qk(q, k, *qk, 0)
+    with pytest.raises(build.KernelError, match="nvcc failed"):
+        SM.softmax_mrq_codes(q, s1, 0)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("quantize", ["w8a8", "w4a4"])
+def test_async_composed_engine_matches_sync_on_the_card(dev, quantize):
+    """The slot pool on the composed chain (B9c -> B10b -> B9d) equals the
+    sync engine on the composed context (B9a -> B10a -> B9b), bit for
+    bit."""
+    from repro_torch.diffusion.ddpm import DiffusionCfg
+    from repro_torch.launch.serve import build
+    from repro_torch.serving.batching import GenRequest
+    from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
+    cfg, params, art, _, _, _ = build("dit-xl-2", True, quantize, 0, 1, 2,
+                                      4, 1.5, device="cuda",
+                                      attn_impl="composed")
+    dif = DiffusionCfg(T=1000)
+    reqs = [GenRequest(request_id=i, label=i % 8, steps=(4, 6)[i % 2],
+                       cfg_scale=1.5, seed=40 + i) for i in range(5)]
+    kw = dict(ctx=art.context(), microbatch=2, step_buckets=(4, 6),
+              device="cuda")
+    assert kw["ctx"].attn_impl == "composed"
+    before = dict(kernels.LAUNCHES)
+    ref = ServeEngine(params, cfg, dif, **kw).serve(reqs)
+    mid = dict(kernels.LAUNCHES)
+    out = AsyncServeEngine(params, cfg, dif, chunk=3, **kw).serve(reqs)
+    for rid, o in out.items():
+        assert o.status == "OK"
+        assert np.array_equal(o.sample, ref[rid].sample), rid
+    for name in ("int8_bmm_qk", "softmax_mrq_codes", "int8_bmm_pv"):
+        assert mid[name] > before[name]
+        assert kernels.LAUNCHES[name + "_vec"] > mid[name + "_vec"]
+        assert kernels.LAUNCHES[name] == mid[name]
