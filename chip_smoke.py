@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
-and continuous-batching, flash and composed attention, on one NVIDIA GPU.
+and continuous-batching, flash and composed attention, and its public
+kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -24,11 +25,21 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              B9c -> B10b -> B9d (bits 8, 6 and 4, bf16; f32 at 8), each
              kernel against its plain version, the vec ones also against
              the scalar ones, the scalar chain against B3 within the
-             reference's flash_vs_composed_atol; max error and
-             mismatches against the tolerance registry; kernel,
-             plain-version and library-call times (CUDA events) beside
-             the least time the card could take (bytes at 3.35 TB/s,
-             int8 operations at 1979 TOP/s, fp32 at 67 TFLOP/s).
+             reference's flash_vs_composed_atol; the public API's B11
+             int8_matmul on qkv and fc2 codes and a ragged 130x257x129
+             (f32 and bf16 out, with and without bias), B12 softmax_mrq
+             on (32768, 256) scores (f32 and bf16, bits 8 and 6), B13
+             act_mrq (GELU on fc1's (2048, 4608) output, SiLU on the
+             (8, 1152) adaLN input; bf16 and f32, bits 8 and 6), and the
+             masked B3, B3b, B8 (bits 8 and 4 packed; causal, random with
+             fully masked rows, ragged Skv 77 with a padding mask, GQA),
+             each also within flash_vs_composed_atol of the masked
+             composed chain; max error and mismatches against the
+             tolerance registry; kernel, plain-version and library-call
+             times (CUDA events) beside the least time the card could
+             take (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s,
+             fp32 at 67 TFLOP/s), and the masked flash time beside the
+             unmasked one.
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -60,12 +71,22 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              dispatch fault steps the flash async engine to the composed
              rung, which serves every request. Prints flash and composed
              ms/step and req/s side by side.
+5. entry points — the public kernel API at the DiT-XL/2 shapes:
+             ``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
+             ``ops.act_mrq_op`` (GELU and SiLU) and
+             ``ops.flash_attention(mask=causal)`` at bits 8 and 4, scalar
+             and per-slot groups; launch counts (set to 0 before, read
+             after) one per call, outputs finite and equal to the plain
+             versions'. Its counts join the serves' in the kernels line,
+             so each of the 21 kernels shows the launches of the path
+             that reaches it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import pickle
@@ -80,6 +101,9 @@ FP32_OPS = 67e12           # fp32 outside the tensor cores, flop/s
 SOFTMAX_FP32_PER_SCORE = 10  # fp32 ops per score: scale, max, sub, exp,
                              # sum, 2 divides, compare, round, rescale
 CODES_FP32_PER_SCORE = 7     # B10: max, sub, exp, sum, 2 divides, round
+QDQ_FP32_PER_SCORE = 8       # B12: B10's 7 and the dequantising multiply
+GELU_MRQ_FP32_PER_ELEM = 15  # B13: 5 multiplies, 2 adds, tanh in the GELU;
+                             # compare, divide, round, clip (2), multiply
 
 
 def log(*a):
@@ -276,8 +300,8 @@ def flash_case(bits, dt, gen, timed, packed_kv=False, vec=False):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels import flash_attn_mrq as FA
     from repro_torch.kernels.ref import TOLERANCES
+    FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
 
     dev = torch.device("cuda")
     BH, S, D, G = 128, 256, 72, 10
@@ -362,10 +386,10 @@ def composed_case(bits, dt, gen, timed, vec=False):
     import torch
 
     from repro_torch import kernels
-    from repro_torch.kernels import flash_attn_mrq as FA
     from repro_torch.kernels import int8_bmm as IB
-    from repro_torch.kernels import softmax_mrq as SM
     from repro_torch.kernels.ref import TOLERANCES, flash_vs_composed_atol
+    FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
+    SM = importlib.import_module("repro_torch.kernels.softmax_mrq")
 
     dev = torch.device("cuda")
     BH, S, D, G, g = 128, 256, 72, 10, 4
@@ -466,6 +490,236 @@ def composed_case(bits, dt, gen, timed, vec=False):
     return rows
 
 
+# -- the public kernel API: B11, B12, B13 and flash's boolean mask ----------
+B11_CASES = [  # (op, M, K, N): the serving linears' codes, and a ragged one
+    ("qkv", 2048, 1152, 3456), ("fc2", 2048, 4608, 1152),
+    ("ragged", 130, 257, 129)]
+
+
+def check_plain(name, out, ref, key, what):
+    """A kernel's output against its plain version's: max error and
+    mismatches, fatal above the registry's bound."""
+    from repro_torch.kernels.ref import TOLERANCES
+    err = (out.float() - ref.float()).abs()
+    max_err, n_bad = float(err.max()), int((err > 0).sum())
+    tol = TOLERANCES[key][0]
+    log(f"kernel {name} {what}: max_abs_err={max_err} mismatches={n_bad}/"
+        f"{err.numel()} (registry {key}: {tol})")
+    if max_err > tol:
+        raise AssertionError(f"{name} {what}: max error {max_err} > {tol}")
+    return max_err
+
+
+def timed_row(run, plain_reps, lib, nbytes, i8_ops, f32_ops, name, what,
+              lib_name):
+    """Kernel, plain-version and library-call times (CUDA events) beside
+    the bound."""
+    from repro_torch import kernels
+    row = {"ms": time_ms(run, 50)}
+    with kernels.plain_on_cuda():
+        row["plain_ms"] = time_ms(run, plain_reps, warmup=1)
+    row["library_ms"] = time_ms(lib, 50)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, i8_ops, f32_ops)
+    log(f"  time {name} {what}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, {lib_name} {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def int8_matmul_case(op, M, K, N, with_bias, dt, gen, timed):
+    """B11 on the caller's codes against its plain version; timed with
+    ``torch._int_mm`` plus the same epilogue as the library call."""
+    import torch
+
+    from repro_torch import kernels
+    dev = torch.device("cuda")
+    xq = torch.randint(-128, 128, (M, K), device=dev, generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (K, N), device=dev, generator=gen,
+                       dtype=torch.int8)
+    scale = torch.rand(N, device=dev, generator=gen) * 1e-3 + 1e-4
+    corr = 3 * wq.to(torch.int32).sum(0, dtype=torch.int32)
+    bias = torch.randn(N, device=dev, generator=gen) if with_bias else None
+    run = lambda: kernels.int8_matmul(xq, wq, scale, corr, bias,
+                                      out_dtype=dt)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    what = (f"op={op} M={M} K={K} N={N} {'bias' if with_bias else 'no bias'}"
+            f" out {str(dt)[6:]}")
+    row = {"max_abs_err": check_plain("int8_matmul", out, ref,
+                                      "B11_vs_plain", what)}
+    if timed:
+        def lib():
+            acc = torch._int_mm(xq, wq)
+            y = (acc - corr).float() * scale
+            return (y + bias if with_bias else y).to(dt)
+        nbytes = M * K + K * N + 3 * N * 4 + M * N * out.element_size()
+        row.update(timed_row(run, 5, lib, nbytes, 2 * M * K * N, 0,
+                             "int8_matmul", what,
+                             "torch._int_mm + epilogue"))
+    return row
+
+
+def softmax_mrq_case(dt, out_dt, bits, gen, timed):
+    """B12 on DiT-XL/2's (B*H*Sq, Skv) = (32768, 256) scores against its
+    plain version; ``torch.softmax`` is the library call."""
+    import torch
+
+    from repro_torch import kernels
+    dev = torch.device("cuda")
+    half = 2 ** (bits - 1)
+    R, C = 8 * 16 * 256, 256
+    scores = (torch.randn(R, C, device=dev, generator=gen) * 4).to(dt)
+    s1 = torch.tensor(8.0 / C / half, device=dev)
+    run = lambda: kernels.softmax_mrq(scores, s1, bits=bits,
+                                      out_dtype=out_dt)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    what = f"R={R} C={C} {str(dt)[6:]} -> {str(out_dt)[6:]} bits={bits}"
+    row = {"max_abs_err": check_plain("softmax_mrq", out, ref,
+                                      "B12_vs_plain", what)}
+    if timed:
+        nbytes = R * C * (scores.element_size() + out.element_size()) + 4
+        row.update(timed_row(run, 3, lambda: torch.softmax(scores, dim=-1),
+                             nbytes, 0, QDQ_FP32_PER_SCORE * R * C,
+                             "softmax_mrq", what, "torch.softmax"))
+    return row
+
+
+ACT_CASES = [  # (kind, shape): fc1's output into the GELU; the adaLN input
+    ("gelu", (2048, 4608)), ("silu", (8, 1152))]
+
+
+def act_mrq_case(kind, shape, dt, bits, gen, timed):
+    """B13 against its plain version; ``F.gelu(approximate="tanh")`` /
+    ``F.silu`` are the library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    dev = torch.device("cuda")
+    half = 2 ** (bits - 1)
+    x = (torch.randn(shape, device=dev, generator=gen) * 3).to(dt)
+    sn = torch.tensor(0.17 / half, device=dev)
+    sp = torch.tensor(6.0 / half, device=dev)
+    run = lambda: kernels.act_mrq(x, sn, sp, bits=bits, kind=kind,
+                                  out_dtype=dt)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    what = f"{kind} {shape} {str(dt)[6:]} bits={bits}"
+    row = {"max_abs_err": check_plain("act_mrq", out, ref, "B13_vs_plain",
+                                      what)}
+    if timed:
+        lib = ((lambda: F.gelu(x, approximate="tanh")) if kind == "gelu"
+               else (lambda: F.silu(x)))
+        n = x.numel()
+        row.update(timed_row(run, 5, lib, 2 * n * x.element_size() + 8, 0,
+                             GELU_MRQ_FP32_PER_ELEM * n, "act_mrq", what,
+                             f"F.{kind}"))
+    return row
+
+
+MASK_CASES = [  # (mask, Sq, Skv, rep): DiT-XL/2's attention; ragged; GQA
+    ("causal", 256, 256, 1), ("random", 256, 256, 1),
+    ("padding", 77, 77, 1), ("causal", 256, 256, 2)]
+
+
+def attn_mask(kind, B, M, N, gen):
+    """(B, M, N) boolean, True = attend: causal; random at 1/2 with every
+    fourth row fully masked; or padding (the last N // 4 keys left out)."""
+    import torch
+    dev = torch.device("cuda")
+    if kind == "causal":
+        return torch.ones(M, N, dtype=torch.bool, device=dev).tril().expand(
+            B, M, N)
+    if kind == "random":
+        m = torch.rand(B, M, N, device=dev, generator=gen) < 0.5
+        m[:, ::4] = False
+        return m
+    return (torch.arange(N, device=dev) < N - N // 4).expand(B, M, N)
+
+
+def masked_flash_case(kind, Sq, Skv, rep, bits, vec, gen, timed):
+    """Masked B3 (bits 8), B3b (bits 4, packed kv) or B8 (``vec``, per-row
+    groups) against its plain version, bit for bit, and within the
+    reference's flash_vs_composed_atol of the masked composed chain (B9a,
+    scores set to NEG_INF where masked, B10a, B9b; their vec siblings for
+    B8). Returns (kernel name, row)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import int8_bmm as IB
+    from repro_torch.kernels import ref as R
+    FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
+    SM = importlib.import_module("repro_torch.kernels.softmax_mrq")
+
+    dev = torch.device("cuda")
+    BH, D, G, g = 128, 72, 10, 4
+    dt = torch.bfloat16
+    half = 2 ** (bits - 1)
+    q = (torch.randn(BH, Sq, D, device=dev, generator=gen) * 1.5).to(dt)
+    k, v = ((torch.randn(BH // rep, Skv, D, device=dev, generator=gen)
+             * 1.5).to(dt) for _ in "kv")
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    s_q = rate * (6.0 / (half - 1))
+    qk = (s_q, s_q * 1.05, s_q * s_q * 1.05 * torch.tensor(
+        D ** -0.5, dtype=torch.float32))
+    s1 = torch.clamp(8.0 * (1.0 / Skv) / half * rate,
+                     1.0 / (half * half * 8), 1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    pv = (s_v, s1 * s_v, s_v * (1.0 / half))
+    mask = attn_mask(kind, BH, Sq, Skv, gen)
+    kw = dict(mask=mask, bits=bits, packed_kv=bits == 4, out_dtype=dt)
+    grp = slot_rows(BH, dev) if vec else g
+    if vec:
+        run = lambda: FA.flash_attn_mrq_vec(q, k, v, *qk, s1, *pv, grp, grp,
+                                            **kw)
+    else:
+        run = lambda: FA.flash_attn_mrq(q, k, v, *qk, s1, *pv, g, g, **kw)
+    name = ("flash_attn_mrq" + ("_vec" if vec else "")
+            + ("_packed_kv" if bits == 4 else ""))
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    what = (f"{kind} mask BH={BH} Sq={Sq} Skv={Skv} rep={rep} hd={D} bf16 "
+            f"bits={bits}")
+    row = {"max_abs_err": check_plain(name, out, ref, "B3_mask_vs_plain",
+                                      what)}
+    if vec:
+        scores = IB.int8_bmm_qk_vec(q, k, *qk, grp, bits=bits)
+        scores = torch.where(mask, scores, R.NEG_INF)
+        codes = SM.softmax_mrq_codes_vec(scores, s1, grp, bits=bits)
+        comp = IB.int8_bmm_pv_vec(codes, v, *pv, grp, bits=bits,
+                                  out_dtype=dt)
+        atol = max(R.flash_vs_composed_atol({"s_v": s_v}, h, Skv, bits)
+                   for h in set(SLOT_GROUPS))
+    else:
+        scores = torch.where(mask, IB.int8_bmm_qk(q, k, *qk, g, bits=bits),
+                             R.NEG_INF)
+        codes = SM.softmax_mrq_codes(scores, s1, g, bits=bits)
+        comp = IB.int8_bmm_pv(codes, v, *pv, g, bits=bits, out_dtype=dt)
+        atol = R.flash_vs_composed_atol({"s_v": s_v}, g, Skv, bits)
+    diff = float((out.float() - comp.float()).abs().max())
+    log(f"  {name} {kind} mask vs the masked composed chain: max |diff| "
+        f"{diff:.6f} (flash_vs_composed_atol {atol:.6f})")
+    if not diff <= atol:
+        raise AssertionError(f"{name} {what}: {diff} > {atol} from composed")
+    if timed:
+        row["masked_ms"] = time_ms(run, 50)
+        log(f"  time {name} {what}: kernel {row['masked_ms']:.4f} ms")
+    return name, row
+
+
+MASKED_MS = {}     # kernel -> masked (causal) time at bits 8, this run
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -510,6 +764,33 @@ def phase_kernels():
                 rows.setdefault(name, []).append(r)
     for name, r in composed_case(8, torch.float32, gen, False).items():
         rows[name].append(r)
+    # the public kernel API: B11, B12, B13 and the masked flash kernels
+    for op, M, K, N in B11_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for with_bias in (True, False):
+                rows.setdefault("int8_matmul", []).append(int8_matmul_case(
+                    op, M, K, N, with_bias, dt, gen,
+                    (op, dt, with_bias) == ("qkv", torch.float32, True)))
+    for dt in (torch.float32, torch.bfloat16):
+        for bits in (8, 6):
+            rows.setdefault("softmax_mrq", []).append(softmax_mrq_case(
+                dt, dt, bits, gen, (dt, bits) == (torch.float32, 8)))
+    rows["softmax_mrq"].append(softmax_mrq_case(
+        torch.bfloat16, torch.float32, 8, gen, False))
+    for kind, shape in ACT_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            for bits in (8, 6):
+                rows.setdefault("act_mrq", []).append(act_mrq_case(
+                    kind, shape, dt, bits, gen,
+                    (kind, dt, bits) == ("gelu", torch.bfloat16, 8)))
+    for kind, Sq, Skv, rep in MASK_CASES:
+        for bits, vec in ((8, False), (4, False), (8, True), (4, True)):
+            timed = (kind, rep, bits) == ("causal", 1, 8)
+            name, r = masked_flash_case(kind, Sq, Skv, rep, bits, vec, gen,
+                                        timed)
+            rows[name].append({"max_abs_err": r["max_abs_err"]})
+            if timed:
+                MASKED_MS[name] = r["masked_ms"]
     merged = {}
     for name, rs in rows.items():
         m = next(r for r in rs if "ms" in r).copy()
@@ -897,6 +1178,94 @@ def phase_serve():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the public kernel API through its entry points
+# ---------------------------------------------------------------------------
+def phase_entry_points():
+    """``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
+    ``ops.act_mrq_op`` and ``ops.flash_attention(mask=...)`` (scalar and
+    per-slot groups, bits 8 and 4) at the DiT-XL/2 shapes, the launch
+    counts set to 0 before and read after; each output finite, of its
+    shape, and equal to the plain versions' on the same inputs."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    B, S, H, D, G = 8, 256, 16, 72, 10
+    xq = torch.randint(-128, 128, (2048, 1152), device=dev, generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (1152, 3456), device=dev, generator=gen,
+                       dtype=torch.int8)
+    scale = torch.rand(3456, device=dev, generator=gen) * 1e-3 + 1e-4
+    corr = 3 * wq.to(torch.int32).sum(0, dtype=torch.int32)
+    bias = torch.randn(3456, device=dev, generator=gen)
+    scores = torch.randn(B, H, S, S, device=dev, generator=gen) * 4
+    h = torch.randn(2048, 4608, device=dev, generator=gen).to(torch.bfloat16)
+    c = torch.randn(B, 1152, device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn(B, S, H, 1, D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    k, v = (torch.randn(B, S, H, D, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in "kv")
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    tg = torch.tensor(SLOT_GROUPS, dtype=torch.int32, device=dev)
+
+    def packs(bits):
+        half = 2 ** (bits - 1)
+        rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+        s_q, s1 = rate * (6.0 / (half - 1)), rate * (8.0 / S / half)
+        s_v = rate * (4.0 / (half - 1))
+        meta = {"groups": G, "bits": bits}
+        return ({"s_q": s_q, "s_k": s_q * 1.05, "scale": s_q * s_q * 1.05,
+                 **meta},
+                {"s1": s1, "s_v": s_v, "scale1": s1 * s_v,
+                 "scale2": s_v * (1.0 / half), **meta})
+    p8, p4 = packs(8), packs(4)
+    calls = [
+        ("int8_matmul", lambda: kernels.int8_matmul(
+            xq, wq, scale, corr, bias, out_dtype=torch.bfloat16)),
+        ("softmax_mrq", lambda: ops.softmax_mrq_op(scores, 0.25 / 128)),
+        ("act_mrq", lambda: ops.act_mrq_op(h, 0.17 / 128, 6.0 / 128,
+                                           out_dtype=torch.bfloat16)),
+        ("act_mrq", lambda: ops.act_mrq_op(c, 0.17 / 32, 6.0 / 32, bits=6,
+                                           kind="silu")),
+        ("flash_attn_mrq", lambda: ops.flash_attention(
+            q, k, v, *p8, mask=mask, scale=D ** -0.5, tgroup=4)),
+        ("flash_attn_mrq_packed_kv", lambda: ops.flash_attention(
+            q, k, v, *p4, mask=mask, scale=D ** -0.5, tgroup=4)),
+        ("flash_attn_mrq_vec", lambda: ops.flash_attention(
+            q, k, v, *p8, mask=mask, scale=D ** -0.5, tgroup=tg)),
+        ("flash_attn_mrq_vec_packed_kv", lambda: ops.flash_attention(
+            q, k, v, *p4, mask=mask, scale=D ** -0.5, tgroup=tg)),
+    ]
+    torch.cuda.synchronize()
+    kernels.reset_launches()               # the entry points' run starts here
+    outs = [fn() for _, fn in calls]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)      # ... and ends here
+    want = {name: 0 for name in launches}
+    for name, _ in calls:
+        want[name] += 1
+    log(f"entry points: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"entry point launches {launches} != {want}")
+    with kernels.plain_on_cuda():
+        refs = [fn() for _, fn in calls]
+    for (name, _), out, ref in zip(calls, outs, refs):
+        n_diff = int((out != ref).sum())
+        log(f"  entry point -> {name}: out {tuple(out.shape)} "
+            f"{str(out.dtype)[6:]}, {n_diff} outputs differ from the plain "
+            "versions'")
+        if n_diff or out.shape != ref.shape or not torch.isfinite(
+                out).all():
+            raise AssertionError(f"entry point {name}: {n_diff} outputs "
+                                 "differ from the plain versions' or not "
+                                 "finite")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -924,6 +1293,8 @@ def main() -> int:
     rows = phase_kernels()
     drifts = phase_trained()
     launches = phase_serve()
+    for name, n in phase_entry_points().items():
+        launches[name] = launches.get(name, 0) + n
 
     flash = ("src/repro_torch/csrc/flash_attn_mrq.cu",
              "src/repro/kernels/flash_attn_mrq.py:292")
@@ -963,7 +1334,13 @@ def main() -> int:
                    "src/repro_torch/csrc/softmax_mrq.cu",
                    "src/repro/kernels/softmax_mrq.py:199"),
                "int8_bmm_pv_vec": ("src/repro_torch/csrc/int8_bmm.cu",
-                                   "src/repro/kernels/int8_bmm.py:349")}
+                                   "src/repro/kernels/int8_bmm.py:349"),
+               "int8_matmul": ("src/repro_torch/csrc/int8_fused.cu",
+                               "src/repro/kernels/int8_matmul.py:79"),
+               "softmax_mrq": ("src/repro_torch/csrc/softmax_mrq.cu",
+                               "src/repro/kernels/softmax_mrq.py:78"),
+               "act_mrq": ("src/repro_torch/csrc/act_mrq.cu",
+                           "src/repro/kernels/act_mrq.py:55")}
     idle = [k for k in sources if not launches.get(k)]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -975,6 +1352,9 @@ def main() -> int:
         bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
         library_ms=rows[name]["library_ms"])
         for name, (src, rep) in sources.items()]}
+    log("masked flash (causal, bits 8, bf16) beside unmasked: " + ", ".join(
+        f"{k} {MASKED_MS[k]:.4f} ms / {rows[k]['ms']:.4f} ms"
+        for k in MASKED_MS))
     log(f"total {time.perf_counter() - t0:.1f} s; trained drifts "
         + ", ".join(f"{b} {d:.6f}" for b, d in drifts.items()))
     print(json.dumps(line))

@@ -1,5 +1,6 @@
-// Fused int8 linears for Hopper (sm_90a): kernels B1 and B2, and their
-// per-row-group siblings B6a and B6b.
+// Fused int8 linears for Hopper (sm_90a): kernels B1 and B2, their
+// per-row-group siblings B6a and B6b, and B11 (the GEMM alone, on codes
+// quantized by the caller; see int8_gemm_codes_launch at the end).
 //
 // Replaces the Pallas kernels repro/kernels/int8_fused.py::int8_matmul_fq
 // (B1), ::int8_matmul_mrq_fq (B2), ::int8_matmul_fq_vec (B6a) and
@@ -179,18 +180,23 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
       }
 }
 
-template <bool MRQ, typename TX>
-cudaError_t run(const QArgs& q, GArgs g, cudaStream_t s) {
-  cudaError_t e = launch_quantize<MRQ, TX>(q, s);
-  if (e != cudaSuccess) return e;
+template <bool MRQ>
+cudaError_t launch_gemm(const GArgs& g, cudaStream_t s) {
   constexpr int R = MRQ ? 2 : 1;
   const size_t smem = (size_t)STAGES * (R + 1) * BM * SROW;
-  e = cudaFuncSetAttribute(gemm_kernel<MRQ>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<MRQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
   gemm_kernel<MRQ><<<grid, THREADS, smem, s>>>(g);
   return cudaGetLastError();
+}
+
+template <bool MRQ, typename TX>
+cudaError_t run(const QArgs& q, const GArgs& g, cudaStream_t s) {
+  cudaError_t e = launch_quantize<MRQ, TX>(q, s);
+  if (e != cudaSuccess) return e;
+  return launch_gemm<MRQ>(g, s);
 }
 
 }  // namespace
@@ -232,4 +238,24 @@ extern "C" int int8_matmul_launch(
   if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);
   else e = x_bf16 ? run<false, __nv_bfloat16>(q, a, s) : run<false, float>(q, a, s);
   return (int)e;
+}
+
+// B11 (repro/kernels/int8_matmul.py::int8_matmul): the caller's codes,
+// quantized beforehand, through gemm_kernel<false> with one group and no
+// quantize pass: y = (xq @ wq - corr) * scale + bias, B1's epilogue.
+// xq: (M, Kp) int8, zero-padded along K; wt: the weights as (N, Kp);
+// scale, bias: (N,) f32; corr: (N,) int32; g: a device int32 0.
+extern "C" int int8_gemm_codes_launch(
+    const void* xq, const void* wt, const void* scale, const void* corr,
+    const void* bias, const void* g, void* out, int M, int Kp, int N,
+    int out_bf16, void* stream) {
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % BK) return (int)cudaErrorInvalidValue;
+  GArgs a = {};
+  a.qa = a.qb = static_cast<const int8_t*>(xq);
+  a.wt = static_cast<const int8_t*>(wt);
+  a.scale_a = a.scale_b = static_cast<const float*>(scale);
+  a.corr = static_cast<const int*>(corr); a.bias = static_cast<const float*>(bias);
+  a.g = static_cast<const int*>(g); a.out = out;
+  a.M = M; a.N = N; a.Kp = Kp; a.out_bf16 = out_bf16; a.gs = 0; a.G = 1;
+  return (int)launch_gemm<false>(a, static_cast<cudaStream_t>(stream));
 }

@@ -29,7 +29,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("int8_fused", "int4_packed", "flash_attn_mrq", "int8_bmm",
-           "softmax_mrq")
+           "softmax_mrq", "act_mrq")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -92,6 +92,8 @@ _SIGNATURES = {
         # res out codes_a codes_b | M K Kp N half x_bf16 res_bf16 out_bf16
         # mrq gs G | stream
         "int8_matmul_launch": [_P] * 20 + [_I] * 11 + [_P],
+        # xq wt scale corr bias g out | M Kp N out_bf16 | stream
+        "int8_gemm_codes_launch": [_P] * 7 + [_I] * 4 + [_P],
     },
     "int4_packed": {
         # as int8_matmul_launch | M K Kq N gk gkp nk x_bf16 res_bf16
@@ -99,10 +101,10 @@ _SIGNATURES = {
         "int4_matmul_launch": [_P] * 20 + [_I] * 13 + [_P],
     },
     "flash_attn_mrq": {
-        # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g_qk g_pv out q8 k8
-        # v8t | B M N D rep half packed_kv x_bf16 out_bf16 vec Gq Gp |
-        # stream
-        "flash_attn_mrq_launch": [_P] * 16 + [_I] * 12 + [_P],
+        # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g_qk g_pv mask out
+        # q8 k8 v8t | B M N D rep half packed_kv x_bf16 out_bf16 vec Gq
+        # Gp | stream
+        "flash_attn_mrq_launch": [_P] * 17 + [_I] * 12 + [_P],
     },
     "int8_bmm": {
         # q k s_q s_k scale g out q8 k8 | B M N D rep half x_bf16 out_bf16
@@ -116,6 +118,12 @@ _SIGNATURES = {
         # scores s1 g out | R (long) | C rpg half x_bf16 gs G | stream
         "softmax_mrq_codes_launch": [_P] * 4 + [ctypes.c_long] + [_I] * 6
                                     + [_P],
+        # scores s1 g out | R (long) | C half x_bf16 out_bf16 | stream
+        "softmax_mrq_launch": [_P] * 4 + [ctypes.c_long] + [_I] * 4 + [_P],
+    },
+    "act_mrq": {
+        # x s_neg s_pos out | n (long) | half kind x_bf16 out_bf16 | stream
+        "act_mrq_launch": [_P] * 4 + [ctypes.c_long] + [_I] * 4 + [_P],
     },
 }
 

@@ -19,8 +19,15 @@ scale2: (Gp, 1) f32.
 ``packed_kv=True`` (bits 4 only, the W4A4 serving path, B3b): the k and v
 codes are stored two per byte and widened by the kernel as it loads each
 tile — the same codes and arithmetic as unpacked 4-bit, half the kv code
-bytes; it counts under ``LAUNCHES["flash_attn_mrq_packed_kv"]``. The
-boolean mask is not on the DiT serving path and waits for a later slice.
+bytes; it counts under ``LAUNCHES["flash_attn_mrq_packed_kv"]``.
+
+``mask`` (all three kernels): a boolean broadcastable to (B, M, N), True
+= attend, as the reference takes it. The wrapper expands it to one int8
+0/1 byte per (q row, kv lane) and the kernel sets each masked lane to the
+ragged lanes' finite ``NEG_INF`` before the online max; a fully masked
+row then averages every lane up to the reference's padded kv length (e =
+exp(0) = 1 on each), the reference's result. The mask is not on the DiT
+serving path (``ops.flash_attention(mask=...)`` reaches it).
 
 ``flash_attn_mrq_vec`` (B8) replaces ``::flash_attn_mrq_vec``: ``g_qk``
 and ``g_pv`` are (B,) int32 device vectors and batch row b runs with its
@@ -44,9 +51,17 @@ from repro_torch.kernels.int8_fused import (
 MAX_HEAD_DIM = 128
 
 
+def _expand_mask(mask, q, N):
+    """A boolean mask broadcast to (B, M, N) (None stays None)."""
+    if mask is None:
+        return None
+    return torch.broadcast_to(torch.as_tensor(mask, device=q.device),
+                              (q.shape[0], q.shape[1], N))
+
+
 def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
-                         scale2, g_qk=0, g_pv=0, *, bits=8, packed_kv=False,
-                         out_dtype=torch.float32):
+                         scale2, g_qk=0, g_pv=0, mask=None, *, bits=8,
+                         packed_kv=False, out_dtype=torch.float32):
     """Plain version of B3 (and B3b): the tile-faithful recurrence
     (``ref.flash_core_ref``) with kv gathered per q batch."""
     rep = q.shape[0] // k.shape[0]
@@ -56,18 +71,21 @@ def flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
     return ref.flash_core_ref(
         q, k, v, s_q[g_qk][0], s_k[g_qk][0], qk_scale[g_qk][0], s1[g_pv][0],
         s_v[g_pv][0], scale1[g_pv][0], scale2[g_pv][0], bits,
-        out_dtype=out_dtype, packed_kv=packed_kv)
+        out_dtype=out_dtype, packed_kv=packed_kv,
+        mask=_expand_mask(mask, q, k.shape[1]))
 
 
 def flash_attn_mrq_vec_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
-                             scale2, g_qk=None, g_pv=None, *, bits=8,
-                             packed_kv=False, out_dtype=torch.float32):
+                             scale2, g_qk=None, g_pv=None, mask=None, *,
+                             bits=8, packed_kv=False,
+                             out_dtype=torch.float32):
     """Plain version of B8: ``ref.flash_attn_mrq_vec_ref`` with kv gathered
     per q batch row."""
     k, v = repeat_batch(k, q.shape[0]), repeat_batch(v, q.shape[0])
     return ref.flash_attn_mrq_vec_ref(
         q, k, v, {"s_q": s_q, "s_k": s_k, "scale": qk_scale},
         {"s1": s1, "s_v": s_v, "scale1": scale1, "scale2": scale2},
+        mask=_expand_mask(mask, q, k.shape[1]),
         g_qk=clamp_groups(g_qk, s_q.shape[0]),
         g_pv=clamp_groups(g_pv, s1.shape[0]), bits=bits,
         out_dtype=out_dtype, packed_kv=packed_kv)
@@ -87,7 +105,7 @@ _PAIRS: dict = {}
 
 
 def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
-                   g_qk=0, g_pv=0, *, bits=8, packed_kv=False,
+                   g_qk=0, g_pv=0, mask=None, *, bits=8, packed_kv=False,
                    out_dtype=torch.float32):
     """B3 / B3b (see the module docstring). CUDA tensors launch the
     kernel, CPU tensors take the plain version."""
@@ -95,15 +113,16 @@ def flash_attn_mrq(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
         raise ValueError("packed_kv streams nibbles: 4-bit codes only")
     if not _k.use_kernel(q):
         return flash_attn_mrq_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v,
-                                    scale1, scale2, g_qk, g_pv, bits=bits,
-                                    packed_kv=packed_kv, out_dtype=out_dtype)
+                                    scale1, scale2, g_qk, g_pv, mask,
+                                    bits=bits, packed_kv=packed_kv,
+                                    out_dtype=out_dtype)
     return _launch(q, k, v, (s_q, s_k, qk_scale, s1, s_v, scale1, scale2),
-                   (g_qk, g_pv), bits, packed_kv, out_dtype)
+                   (g_qk, g_pv), mask, bits, packed_kv, out_dtype)
 
 
 def flash_attn_mrq_vec(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
-                       g_qk=None, g_pv=None, *, bits=8, packed_kv=False,
-                       out_dtype=torch.float32):
+                       g_qk=None, g_pv=None, mask=None, *, bits=8,
+                       packed_kv=False, out_dtype=torch.float32):
     """B8 (see the module docstring): ``g_qk``/``g_pv`` (B,) int32 device
     vectors, None for group 0. CUDA tensors launch the kernel, CPU tensors
     take the plain version."""
@@ -114,13 +133,13 @@ def flash_attn_mrq_vec(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
     if not _k.use_kernel(q):
         return flash_attn_mrq_vec_plain(
             q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2, g_qk, g_pv,
-            bits=bits, packed_kv=packed_kv, out_dtype=out_dtype)
+            mask, bits=bits, packed_kv=packed_kv, out_dtype=out_dtype)
     k, v = repeat_batch(k, B), repeat_batch(v, B)
     return _launch(q, k, v, (s_q, s_k, qk_scale, s1, s_v, scale1, scale2),
-                   (g_qk, g_pv), bits, packed_kv, out_dtype)
+                   (g_qk, g_pv), mask, bits, packed_kv, out_dtype)
 
 
-def _launch(q, k, v, params, groups, bits, packed_kv, out_dtype):
+def _launch(q, k, v, params, groups, mask, bits, packed_kv, out_dtype):
     """Check the operands and launch B3/B3b (scalar ``groups``) or B8
     (a pair of (B,) vectors)."""
     s_q, s_k, qk_scale, s1, s_v, scale1, scale2 = params
@@ -154,6 +173,9 @@ def _launch(q, k, v, params, groups, bits, packed_kv, out_dtype):
     else:
         pair = _pair_ptr(dev, g_qk, g_pv)
         gptrs = (pair, pair + 4)
+    if mask is not None:                   # one int8 0/1 byte per lane
+        mask = _expand_mask(mask, q, N).to(torch.int8).contiguous()
+        _need(mask, "mask", (torch.int8,), (B, M, N), dev)
     out = torch.empty((B, M, D), dtype=out_dtype, device=dev)
     # int8 code scratch: head dim padded to the 32-deep mma (q, k) and to 8
     # (v, transposed to kv-contiguous rows); rows padded to the tiles;
@@ -168,7 +190,8 @@ def _launch(q, k, v, params, groups, bits, packed_kv, out_dtype):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), s_q.data_ptr(),
         s_k.data_ptr(), qk_scale.data_ptr(), s1.data_ptr(), s_v.data_ptr(),
         scale1.data_ptr(), scale2.data_ptr(), *gptrs,
-        out.data_ptr(), q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
         B, M, N, D, B // Bk, 2 ** (bits - 1), int(packed_kv), _DT[q.dtype],
         _DT[out_dtype], int(vec), Gq, Gp,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -22,6 +22,10 @@ B9c, B10b, B9d in the composed chain) with one group per matmul row
 timesteps and the weights stream once. A pack whose groups resolve to a
 scalar (G = 1) beside a vector sibling rides along as a constant vector.
 The vector never leaves the device.
+
+Off the serving path, the public kernel API of ``repro/kernels/ops.py``:
+``flash_attention(mask=...)`` (the boolean mask of B3, B3b and B8),
+``softmax_mrq_op`` (B12) and ``act_mrq_op`` (B13).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 from repro_torch.core.quantizers import (
     ChannelQ, MRQSignedQ, MRQSoftmaxQ, SymQ, TGQ, UniformQ,
 )
+from repro_torch.kernels.act_mrq import act_mrq
 from repro_torch.kernels.flash_attn_mrq import (
     flash_attn_mrq, flash_attn_mrq_vec,
 )
@@ -49,7 +54,7 @@ from repro_torch.kernels.int8_fused import (
 )
 from repro_torch.kernels.ref import NEG_INF, _ceil, pack_int4
 from repro_torch.kernels.softmax_mrq import (
-    softmax_mrq_codes, softmax_mrq_codes_vec,
+    softmax_mrq, softmax_mrq_codes, softmax_mrq_codes_vec,
 )
 from repro_torch.quant.groups import resolve_group
 
@@ -537,24 +542,43 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd). Returns
     (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale. With
     a per-slot (B,) ``tgroup`` each slot's group repeats over its Hk * G
-    batch·head rows (slot-major after the transpose)."""
-    if mask is not None:
-        raise NotImplementedError(
-            "masked flash attention is not on the DiT serving path")
+    batch·head rows (slot-major after the transpose). ``mask``: boolean,
+    broadcastable to (B, Hk, G, Sq, Skv), True = attend; the kernel sets
+    each masked lane to ``NEG_INF`` before the online max."""
     out_dtype = out_dtype or q.dtype
     B, Sq, Hk, G, hd = q.shape
+    Skv = k.shape[1]
     BHG = B * Hk * G
     qf, kf, vf = _flatten_heads(q, k, v)
+    mf = None
+    if mask is not None:
+        mf = torch.broadcast_to(torch.as_tensor(mask, device=q.device),
+                                (B, Hk, G, Sq, Skv)).reshape(BHG, Sq, Skv)
     bits = int(qk_pack.get("bits", 8))
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)
     args = (qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
             qk_pack["scale"] * float(np.float32(scale)), pv_pack["s1"],
             pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"])
-    kw = dict(bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
+    kw = dict(mask=mf, bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
     if is_vec(g_qk) or is_vec(g_pv):
         out = flash_attn_mrq_vec(*args, g_qk=_as_vec(g_qk, BHG, q.device),
                                  g_pv=_as_vec(g_pv, BHG, q.device), **kw)
     else:
         out = flash_attn_mrq(*args, g_qk=g_qk, g_pv=g_pv, **kw)
     return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)
+
+
+# ---------------------------------------------------------------------------
+# fused activation kernels (public API)
+# ---------------------------------------------------------------------------
+def softmax_mrq_op(scores, s1, bits: int = 8, out_dtype=torch.float32):
+    """Row softmax then MRQ two-region quant-dequant (B12)."""
+    return softmax_mrq(scores, s1, bits=bits, out_dtype=out_dtype)
+
+
+def act_mrq_op(x, s_neg, s_pos, bits: int = 8, kind: str = "gelu",
+               out_dtype=torch.float32):
+    """GELU (tanh) or SiLU then MRQ signed quant-dequant (B13)."""
+    return act_mrq(x, s_neg, s_pos, bits=bits, kind=kind,
+                   out_dtype=out_dtype)

@@ -1,11 +1,12 @@
 """Plain PyTorch oracles for the serving-path kernels, and the port's
 tolerance registry.
 
-Torch ports of the serving-path entries of ``repro/kernels/ref.py`` (the
-byte-code and packed-int4 linears, flash attention, the composed int8
-attention chain, and the per-row-group ``*_vec`` oracles of the
-continuous-batching path) and of the nibble helpers of
-``repro/kernels/int4_packed.py``. Each
+Torch ports of the kernel entries of ``repro/kernels/ref.py`` (the
+byte-code and packed-int4 linears, the pre-quantized int8 matmul, flash
+attention with its boolean mask, the composed int8 attention chain, the
+per-row-group ``*_vec`` oracles of the continuous-batching path, and the
+fused softmax and activation quant-dequant passes) and of the nibble
+helpers of ``repro/kernels/int4_packed.py``. Each
 ``*_ref`` computes exactly what the corresponding kernel must produce, op
 for op and rounding step for rounding step (``torch.round`` rounds half
 to even as ``jnp.round`` does; every multiply and add is its own torch
@@ -19,10 +20,15 @@ plain version see identical prologue inputs.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG_INF = -1e9
 _M_INIT = -1e30
+# jax.nn.gelu's constant, np.sqrt(2 / np.pi) rounded to f32
+SQRT_2_OVER_PI = float(torch.tensor(math.sqrt(2 / math.pi),
+                                    dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +67,22 @@ TOLERANCES = {
                      "same exp (the card's expf through torch.exp), sums "
                      "each row in the kernel's order (warp_rowsum) and "
                      "divides as IEEE; the codes are then identical"),
+    "B3_mask_vs_plain": (0.0, "as B3: masked lanes get the same NEG_INF as "
+                         "the ragged ones before the online max, in kernel "
+                         "and plain version alike; a fully masked row then "
+                         "gives e = exp(0) = 1 on every lane up to the "
+                         "reference's padded kv length"),
+    "B11_vs_plain": (0.0, "integer-exact s32 products of the caller's codes; "
+                     "the epilogue (acc - corr) * scale + bias rounds each "
+                     "step once in both (B1's epilogue, one group)"),
+    "B12_vs_plain": (0.0, "as B10: the same max, exp (the card's expf "
+                     "through torch.exp), row sum in the kernel's order "
+                     "(warp_rowsum) and IEEE divides; the dequantising "
+                     "multiply by s1 or s2 rounds once in both"),
+    "B13_vs_plain": (0.0, "GELU spelled op by op in jax.nn.gelu's order, "
+                     "SiLU as x * (1 / (1 + exp(-x))), each step rounding "
+                     "once (tanhf / expf are torch.tanh / torch.exp on the "
+                     "card); IEEE divide, rint, one dequantising multiply"),
     "vec_vs_plain": (0.0, "B6a/B6b/B7a/B7b/B8/B9c/B9d/B10b run their scalar "
                      "siblings' arithmetic with each row's (batch row's) "
                      "group read from the vector; the plain versions "
@@ -95,6 +117,32 @@ TOLERANCES = {
         1e-3, "torch and XLA sum the layernorm mean/var in different "
         "orders and differ in rsqrt by an ulp; a code sitting on a "
         ".5 boundary flips"),
+    "B11_plain_vs_jax": (0.0, "the same exact integer product and the same "
+                         "f32 epilogue op for op (eager jnp oracle)"),
+    "B11_plain_vs_jax_jit_ulps": (
+        1.0, "under jax.jit (the Pallas entry point in interpret mode) "
+        "XLA's CPU backend contracts acc * scale + bias into one FMA, "
+        "while the port rounds the product first, as the eager oracle does "
+        "and as the card's kernel does (-fmad=false): the two differ by at "
+        "most one f32 ulp of max(|acc * scale|, |y|)"),
+    "B12_flip_rate_vs_jax": (
+        1e-4, "XLA sums each softmax row in another order than the port "
+        "(warp_rowsum, the kernel's order) and its exp may differ by an "
+        "ulp: p differs by ulps, and a p / s on a .5 boundary (or p on the "
+        "region threshold) moves its output by one step; at most 1e-4 of "
+        "the outputs, or one output of a smaller tensor, may differ (4 in "
+        "8,387,456 seen on the CPU: python "
+        "tests/test_torch_public_kernels.py)"),
+    "B13_flip_rate_vs_jax": (
+        1e-4, "XLA's tanh differs from torch's by an ulp in about 6 of 10 "
+        "elements on the CPU, its exp in about 1 of 10 (the GELU and SiLU "
+        "op order is the same: with XLA's tanh and exp the port's "
+        "spelling equals jax.nn.gelu / silu bit for bit): h / s on a .5 "
+        "boundary moves its output by one step of its region; at most "
+        "1e-4 of the outputs, or one output of a smaller tensor, may "
+        "differ (at most 31 in 4,194,304 seen on the CPU, GELU at 8 bits "
+        "on f32 inputs, none on bf16 inputs: python "
+        "tests/test_torch_public_kernels.py)"),
     "B9_plain_vs_jax": (0.0, "B9a/B9b: the same f32 divide, round, exact "
                         "integer products and f32 epilogue op for op "
                         "(eager jnp oracles)"),
@@ -372,14 +420,18 @@ def tile_rowsum(e):
 
 def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
                    bn: int = 128, out_dtype=torch.float32,
-                   packed_kv: bool = False):
+                   packed_kv: bool = False, mask=None):
     """The flash kernel's per-kv-tile recurrence over (B, S, hd) operands
     with per-call scalar params (0-d f32 tensors): int8 QK^T, NEG_INF on
-    ragged lanes BEFORE the online max, running max/denominator, MRQ
-    codes against the running normalisation, dual-region integer P·V with
-    the fp rescale ``rho = corr * l_prev / l_new``. ``packed_kv`` (4-bit):
-    the k and v codes go through the pack pre-pass (two per byte along
-    the head dim) and are widened again, as the kernel streams them."""
+    ragged lanes and then on the lanes ``mask`` (a (B, M, N) boolean,
+    True = attend) leaves out, BEFORE the online max, running
+    max/denominator, MRQ codes against the running normalisation,
+    dual-region integer P·V with the fp rescale ``rho = corr * l_prev /
+    l_new``. The mask is padded with False on the ragged lanes, as the
+    reference pads it: a fully masked row gets ``e = 1`` on every lane
+    up to the padded length ``Np``. ``packed_kv`` (4-bit): the k and v
+    codes go through the pack pre-pass (two per byte along the head dim)
+    and are widened again, as the kernel streams them."""
     B, M, D = q.shape
     N = k.shape[1]
     half = 2 ** (bits - 1)
@@ -395,6 +447,9 @@ def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
             raise ValueError("packed_kv streams nibbles: 4-bit codes only")
         k8, v8 = (unpack_int4(pack_int4(c, axis=-1), D, axis=-1)
                   for c in (k8, v8))
+    if mask is not None:
+        mask = torch.cat([mask.bool(), torch.zeros(
+            (B, M, Np - N), dtype=torch.bool, device=mask.device)], dim=-1)
 
     dev = q.device
     m_run = torch.full((B, M, 1), _M_INIT, dtype=torch.float32, device=dev)
@@ -408,6 +463,9 @@ def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
         s = imatmul(q8, kt.transpose(1, 2)).float() * qs
         s = torch.where(col[n0:n0 + bn_][None, None, :] < N, s,
                         torch.full_like(s, NEG_INF))
+        if mask is not None:
+            s = torch.where(mask[:, :, n0:n0 + bn_], s,
+                            torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
         e = torch.exp(s - m_new)
         corr = torch.exp(m_run - m_new)
@@ -427,8 +485,8 @@ def flash_core_ref(q, k, v, sq, sk, qs, s1, sv, sc1, sc2, bits: int,
     return (acc1 * sc1 + acc2 * sc2).to(out_dtype)
 
 
-def flash_attn_mrq_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=0,
-                       g_pv=0, bits: int = 8, bn: int = 128,
+def flash_attn_mrq_ref(q, k, v, qk_pack, pv_pack, mask=None, scale=1.0,
+                       g_qk=0, g_pv=0, bits: int = 8, bn: int = 128,
                        out_dtype=torch.float32):
     """Tile-faithful oracle over FLATTENED (B, S, hd) operands (kv
     materialised per q batch), mirroring ``repro.kernels.ref``."""
@@ -436,7 +494,8 @@ def flash_attn_mrq_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=0,
         q, k, v, qk_pack["s_q"][g_qk][0], qk_pack["s_k"][g_qk][0],
         qk_pack["scale"][g_qk][0] * scale, pv_pack["s1"][g_pv][0],
         pv_pack["s_v"][g_pv][0], pv_pack["scale1"][g_pv][0],
-        pv_pack["scale2"][g_pv][0], bits, bn=bn, out_dtype=out_dtype)
+        pv_pack["scale2"][g_pv][0], bits, bn=bn, out_dtype=out_dtype,
+        mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -508,6 +567,60 @@ def softmax_mrq_codes_ref(scores, s1, g=0, bits: int = 8):
     """Row softmax then region-signed codes: c >= 0 a region-1 code (step
     s1[g]), c < 0 the negated region-2 code (step s2 = 1/half)."""
     return softmax_mrq_codes_core(scores, s1[g][0], bits)
+
+
+def _scalar(s, like):
+    """A step as a 0-d f32 tensor on ``like``'s device: on the card a
+    divide by a host scalar runs as a reciprocal multiply, which rounds
+    otherwise than the kernels' IEEE divide."""
+    return torch.as_tensor(s, dtype=torch.float32, device=like.device)
+
+
+def softmax_mrq_ref(scores, s1, bits: int, out_dtype=torch.float32):
+    """Row softmax (last axis; the kernel's max, exp and row-sum order,
+    ``warp_rowsum``) then the MRQ two-region quant-dequant (B12): ``q1 =
+    clip(rint(p / s1), 0, half-1) * s1`` where ``p < half * s1``, else
+    ``q2 = clip(rint(p / s2), 0, half) * s2`` with ``s2 = 1/half``; ``s1``
+    a scalar."""
+    half = 2 ** (bits - 1)
+    x = scores.float()
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    p = e / warp_rowsum(e)
+    s1 = _scalar(s1, x)
+    s2 = 1.0 / half
+    q1 = torch.clamp(torch.round(p / s1), 0, half - 1) * s1
+    q2 = torch.clamp(torch.round(p / s2), 0, half) * s2
+    return torch.where(p < half * s1, q1, q2).to(out_dtype)
+
+
+def gelu_tanh_ref(x):
+    """``jax.nn.gelu(x, approximate=True)`` op by op in its order, each
+    step its own f32 op: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 *
+    (x * x * x)))))`` with ``c`` = f32 sqrt(2/pi)."""
+    inner = SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def silu_ref(x):
+    """``x * sigmoid(x)`` with the sigmoid spelled ``1 / (1 + exp(-x))``
+    (an IEEE reciprocal)."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def act_mrq_ref(x, s_neg, s_pos, bits: int, kind: str = "gelu",
+                out_dtype=torch.float32):
+    """GELU (tanh) or SiLU in f32, then the MRQ signed two-region
+    quant-dequant (B13): ``clip(rint(h / s_neg), -half, 0) * s_neg`` where
+    ``h < 0``, else ``clip(rint(h / s_pos), 0, half-1) * s_pos``."""
+    if kind not in ("gelu", "silu"):
+        raise ValueError(kind)
+    half = 2 ** (bits - 1)
+    xf = x.float()
+    h = gelu_tanh_ref(xf) if kind == "gelu" else silu_ref(xf)
+    sn, sp = _scalar(s_neg, xf), _scalar(s_pos, xf)
+    qn = torch.clamp(torch.round(h / sn), -half, 0) * sn
+    qp = torch.clamp(torch.round(h / sp), 0, half - 1) * sp
+    return torch.where(h < 0, qn, qp).to(out_dtype)
 
 
 def mrq_codes_decode_ref(codes, s1, g=0, bits: int = 8):
@@ -672,8 +785,8 @@ def int4_matmul_mrq_fq_vec_fused_ref(x, wp, s_neg, s_pos, scale_neg,
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
 
 
-def flash_attn_mrq_vec_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=None,
-                           g_pv=None, bits: int = 8, bn: int = 128,
+def flash_attn_mrq_vec_ref(q, k, v, qk_pack, pv_pack, mask=None, scale=1.0,
+                           g_qk=None, g_pv=None, bits: int = 8, bn: int = 128,
                            out_dtype=torch.float32, packed_kv: bool = False):
     """The flash recurrence (``flash_core_ref``) with every group-gathered
     scalar widened to a (B, 1, 1) per-batch-row column; q, k and v share
@@ -686,7 +799,7 @@ def flash_attn_mrq_vec_ref(q, k, v, qk_pack, pv_pack, scale=1.0, g_qk=None,
         col(qk_pack["scale"], g_qk) * scale, col(pv_pack["s1"], g_pv),
         col(pv_pack["s_v"], g_pv), col(pv_pack["scale1"], g_pv),
         col(pv_pack["scale2"], g_pv), bits, bn=bn, out_dtype=out_dtype,
-        packed_kv=packed_kv)
+        packed_kv=packed_kv, mask=mask)
 
 
 def _batch_col(t, gv):

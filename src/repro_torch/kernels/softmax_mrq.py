@@ -1,6 +1,6 @@
 """Row softmax straight to region-signed MRQ probability codes (kernel
-B10a, and its per-row-group sibling B10b) — wrappers, plain versions and
-launch counts.
+B10a, and its per-row-group sibling B10b), and to dequantised MRQ
+probabilities (B12) — wrappers, plain versions and launch counts.
 
 ``softmax_mrq_codes`` replaces ``repro/kernels/softmax_mrq.py::
 softmax_mrq_codes``: over the last axis of ``scores`` (f32 or bf16,
@@ -19,6 +19,14 @@ then covering the rows below it: the composed attention passes its
 (B*H,) slot vector for (B*H, Sq, Skv) scores, so no per-row vector is
 built. An entry outside [0, G) reads the nearest group (clamped on the
 device).
+
+``softmax_mrq`` (B12) replaces ``::softmax_mrq``: the same row softmax,
+then the value instead of the code, ``clip(rint(p / s1), 0, half-1) *
+s1`` in region 1 and ``clip(rint(p / s2), 0, half) * s2`` in region 2,
+written in ``out_dtype`` (f32 or bf16); ``s1`` is one scalar (a float or
+a 0-d tensor: the caller has picked its TGQ group). It backs
+``ops.softmax_mrq_op``, no serving path. Same kernel source, a
+dequantising epilogue.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.int8_fused import (
-    _DT, _need, clamp_groups, group_arg, is_vec,
+    _DT, _need, clamp_groups, group_arg, group_ptr, is_vec,
 )
 
 
@@ -46,6 +54,33 @@ def softmax_mrq_codes_vec_plain(scores, s1, gv=None, *, bits=8):
         gv = clamp_groups(gv, s1.shape[0]).reshape(
             tuple(gv.shape) + (1,) * (len(lead) - gv.ndim)).expand(lead)
     return ref.softmax_mrq_codes_vec_ref(scores, s1, gv=gv, bits=bits)
+
+
+def softmax_mrq_plain(scores, s1, *, bits=8, out_dtype=torch.float32):
+    """Plain version of B12: ``ref.softmax_mrq_ref``."""
+    return ref.softmax_mrq_ref(scores, s1, bits, out_dtype=out_dtype)
+
+
+def softmax_mrq(scores, s1, *, bits=8, out_dtype=torch.float32):
+    """B12 (see the module docstring). CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    if not _k.use_kernel(scores):
+        return softmax_mrq_plain(scores, s1, bits=bits, out_dtype=out_dtype)
+    dev = scores.device
+    x = scores.contiguous()
+    _need(x, "scores", tuple(_DT), tuple(scores.shape), dev)
+    if out_dtype not in _DT:
+        raise ValueError(f"out_dtype {out_dtype} not supported")
+    s1 = torch.as_tensor(s1, dtype=torch.float32, device=dev).reshape(1)
+    C = scores.shape[-1]
+    out = torch.empty(scores.shape, dtype=out_dtype, device=dev)
+    err = build.lib("softmax_mrq").softmax_mrq_launch(
+        x.data_ptr(), s1.data_ptr(), group_ptr(dev, 0), out.data_ptr(),
+        x.numel() // max(C, 1), C, 2 ** (bits - 1), _DT[x.dtype],
+        _DT[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "softmax_mrq", "softmax_mrq")
+    _k.LAUNCHES["softmax_mrq"] += 1
+    return out
 
 
 def softmax_mrq_codes(scores, s1, g=None, *, bits=8):

@@ -26,6 +26,7 @@ against the port's own sync engine, on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import warnings
 
 import jax
@@ -41,7 +42,6 @@ from repro.kernels import ref as jref
 from repro.serving import AsyncServeEngine as JAsyncServeEngine
 from repro.serving import GenRequest as JGenRequest
 from repro_torch.diffusion import ddpm
-from repro_torch.kernels import flash_attn_mrq as FA
 from repro_torch.kernels import int4_packed as F4
 from repro_torch.kernels import int8_fused as F8
 from repro_torch.kernels import ops
@@ -54,6 +54,8 @@ from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
 from repro_torch.serving.faults import (
     EngineFault, FakeClock, Fault, FaultInjector,
 )
+
+FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
 
 EXACT = tref.TOLERANCES["vec_plain_vs_jax"][0]
 NM_FLIP_RATE = tref.TOLERANCES["B1_B2_norm_mod_plain_vs_jax_flip_rate"][0]

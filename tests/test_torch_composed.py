@@ -27,6 +27,7 @@ Tolerances (``repro_torch.kernels.ref.TOLERANCES``):
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -44,13 +45,14 @@ from repro_torch.diffusion import ddpm
 from repro_torch.kernels import int8_bmm as IB
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels import softmax_mrq as SM
 from repro_torch.models.dit import DiTCfg, dit_apply, params_from_numpy
 from repro_torch.quant.api import quantize
 from repro_torch.quant.artifact import QuantArtifact
 from repro_torch.quant.recipe import QuantRecipe
 from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
+
+SM = importlib.import_module("repro_torch.kernels.softmax_mrq")
 
 TOL = tref.TOLERANCES
 # (B, Sq, Skv, hd, rep): ragged on every tile edge, 1-row q, GQA

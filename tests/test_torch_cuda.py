@@ -27,23 +27,35 @@ S, 1-row q, GQA), their per-row-group siblings B9c, B10b and B9d held the
 same three ways, ``ops.int8_attention`` on the card equal to its plain
 composition and within ``flash_vs_composed_atol`` of flash, and a
 refused launch or failed build raising ``KernelError``.
+
+The public kernel API: B11 ``int8_matmul`` over the reference's matmul
+shape sweep, B12 ``softmax_mrq`` over its row lengths and B13 ``act_mrq``
+over its activation shapes (and a misaligned view), f32 and bf16 in and
+out, bits 8 and 6, each bit-exact against its plain version
+(``B11_vs_plain``, ``B12_vs_plain``, ``B13_vs_plain``); masked B3, B3b and
+B8 (causal, random with fully masked rows, a padding mask on ragged Skv,
+GQA) bit-exact against theirs (``B3_mask_vs_plain``), and an all-True
+mask equal to the unmasked call.
 """
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.kernels import flash_attn_mrq as FA
 from repro_torch.kernels import int4_packed as F4
 from repro_torch.kernels import int8_bmm as IB
 from repro_torch.kernels import int8_fused as F8
 from repro_torch.kernels import ops
-from repro_torch.kernels import softmax_mrq as SM
 from repro_torch.kernels.ref import (
     TOLERANCES, flash_vs_composed_atol, pack_int4,
 )
+
+FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
+SM = importlib.import_module("repro_torch.kernels.softmax_mrq")
 
 pytestmark = pytest.mark.cuda
 
@@ -562,3 +574,136 @@ def test_async_composed_engine_matches_sync_on_the_card(dev, quantize):
         assert mid[name] > before[name]
         assert kernels.LAUNCHES[name + "_vec"] > mid[name + "_vec"]
         assert kernels.LAUNCHES[name] == mid[name]
+
+
+# -- the public kernel API: B11, B12, B13 and flash's boolean mask ----------
+MM_SHAPES = [(8, 16, 8), (64, 96, 80), (128, 256, 128), (7, 13, 5),
+             (130, 257, 129), (256, 512, 384)]
+
+
+@pytest.mark.parametrize("M,K,N", MM_SHAPES)
+def test_int8_matmul_kernel_matches_plain(dev, M, K, N):
+    """B11 bit for bit against its plain version over the reference's
+    shape sweep, with and without bias, f32 and bf16 out; one launch per
+    call."""
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    xq = torch.randint(-128, 128, (M, K), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(N, device=dev, generator=g) * 0.01 + 1e-4
+    corr = 3 * wq.to(torch.int32).sum(0, dtype=torch.int32)
+    bias = torch.randn(N, device=dev, generator=g)
+    for b in (bias, None):
+        for dt in (torch.float32, torch.bfloat16):
+            run = lambda: kernels.int8_matmul(xq, wq, scale, corr, b,
+                                              out_dtype=dt)
+            before = kernels.LAUNCHES["int8_matmul"]
+            out = run()
+            assert kernels.LAUNCHES["int8_matmul"] == before + 1
+            assert out.dtype == dt and out.shape == (M, N)
+            assert torch.equal(out, _plain(run)), (b is None, dt)
+    assert TOLERANCES["B11_vs_plain"][0] == 0.0
+
+
+@pytest.mark.parametrize("bits", [8, 6])
+@pytest.mark.parametrize("shape", [(4, 16), (2, 3, 64), (2, 4, 8, 32),
+                                   (5, 100), (64, 256), (3, 1000)])
+def test_softmax_mrq_kernel_matches_plain(dev, shape, bits):
+    """B12 bit for bit against its plain version (the reference's row
+    lengths 16, 64, 32, 100 and longer ones), f32 and bf16 scores and out,
+    two steps; one launch per call."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + bits)
+    half = 2 ** (bits - 1)
+    s = torch.randn(shape, device=dev, generator=g) * 4
+    for s1 in (0.25 / half, 8.0 / shape[-1] / half):
+        for dt in (torch.float32, torch.bfloat16):
+            for out_dt in (torch.float32, torch.bfloat16):
+                run = lambda: kernels.softmax_mrq(s.to(dt), s1, bits=bits,
+                                                  out_dtype=out_dt)
+                before = kernels.LAUNCHES["softmax_mrq"]
+                out = run()
+                assert kernels.LAUNCHES["softmax_mrq"] == before + 1
+                assert out.dtype == out_dt and out.shape == s.shape
+                assert torch.equal(out, _plain(run)), (s1, dt, out_dt)
+    assert TOLERANCES["B12_vs_plain"][0] == 0.0
+
+
+@pytest.mark.parametrize("kind", ["gelu", "silu"])
+@pytest.mark.parametrize("bits", [8, 6])
+@pytest.mark.parametrize("shape", [(16, 100), (3, 5, 130), (64, 512),
+                                   (2048, 1024), (7,)])
+def test_act_mrq_kernel_matches_plain(dev, kind, bits, shape):
+    """B13 bit for bit against its plain version over the reference's
+    shape sweep (and a 7-element tail), f32 and bf16 in and out, and on a
+    view that starts off the 16-byte boundary (the unvectorised path)."""
+    g = torch.Generator(device=dev).manual_seed(bits + shape[-1])
+    half = 2 ** (bits - 1)
+    x = torch.randn(shape, device=dev, generator=g) * 3
+    sn, sp = 0.17 / half, torch.tensor(6.0 / half, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for out_dt in (torch.float32, torch.bfloat16):
+            run = lambda: kernels.act_mrq(x.to(dt), sn, sp, bits=bits,
+                                          kind=kind, out_dtype=out_dt)
+            before = kernels.LAUNCHES["act_mrq"]
+            out = run()
+            assert kernels.LAUNCHES["act_mrq"] == before + 1
+            assert out.dtype == out_dt and out.shape == x.shape
+            assert torch.equal(out, _plain(run)), (dt, out_dt)
+    flat = x.reshape(-1)
+    if flat.numel() > 8:
+        off = flat[1:]                     # 4 bytes past the allocation
+        run = lambda: kernels.act_mrq(off, 0.005, 0.03, bits=bits, kind=kind)
+        assert torch.equal(run(), _plain(run))
+    assert TOLERANCES["B13_vs_plain"][0] == 0.0
+
+
+def _mask_case(dev, kind, B, M, N, gen):
+    """(B, M, N) boolean: causal; random with every fourth row fully
+    masked; or padding (the last N // 4 keys left out)."""
+    if kind == "causal":
+        return torch.ones(M, N, dtype=torch.bool, device=dev).tril()
+    if kind == "random":
+        m = torch.rand(B, M, N, device=dev, generator=gen) < 0.5
+        m[:, ::4] = False
+        return m
+    return (torch.arange(N, device=dev) < N - N // 4).expand(B, M, N)
+
+
+@pytest.mark.parametrize("kind", ["causal", "random", "padding"])
+@pytest.mark.parametrize("bits,packed_kv", [(8, False), (4, True)])
+@pytest.mark.parametrize("S,Skv,D,rep", [(77, 77, 40, 1), (64, 300, 72, 2),
+                                         (5, 13, 16, 1)])
+def test_masked_flash_kernels_match_plain(dev, kind, bits, packed_kv, S, Skv,
+                                          D, rep):
+    """Masked B3 (B3b with packed kv) and B8 bit for bit against their
+    plain versions: causal, random with fully masked rows, a padding mask
+    on ragged Skv, GQA (rep 2); an all-True mask equals the unmasked call
+    bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(S + Skv + D + bits)
+    B, G, half = 3 * rep, 3, 2 ** (bits - 1)
+    q = torch.randn(B, S, D, device=dev, generator=g) * 1.5
+    k, v = (torch.randn(B // rep, Skv, D, device=dev, generator=g) * 1.5
+            for _ in "kv")
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=g)
+    s = rate * (3.0 / (half - 1))
+    s1 = rate * (8.0 / Skv / half)
+    args = (q, k, v, s, s * 1.05, s * s * 1.05 * D ** -0.5, s1, s, s1 * s,
+            s / half)
+    mask = _mask_case(dev, kind, B, S, Skv, g)
+    kw = dict(bits=bits, packed_kv=packed_kv)
+    gv = torch.tensor([0, 2, 1, 1, 0, 2][:B], dtype=torch.int32, device=dev)
+    sfx = "_packed_kv" if packed_kv else ""
+    for name, run in (
+            ("flash_attn_mrq" + sfx,
+             lambda m: FA.flash_attn_mrq(*args, 2, 1, mask=m, **kw)),
+            ("flash_attn_mrq_vec" + sfx,
+             lambda m: FA.flash_attn_mrq_vec(*args, gv, gv, mask=m, **kw))):
+        before = kernels.LAUNCHES[name]
+        out = run(mask)
+        assert kernels.LAUNCHES[name] == before + 1
+        assert torch.isfinite(out).all() and out.shape == (B, S, D)
+        ref = _plain(lambda: run(mask))
+        assert (out - ref).abs().max() <= TOLERANCES["B3_mask_vs_plain"][0]
+        ones = torch.ones(B, S, Skv, dtype=torch.bool, device=dev)
+        assert torch.equal(run(ones), run(None)), name

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import weakref
 
 import jax
@@ -42,7 +43,6 @@ from repro.serving import GenRequest as JGenRequest
 from repro.serving import ServeEngine as JServeEngine
 from repro.serving import quickcal as jquickcal
 from repro_torch.diffusion.ddpm import DiffusionCfg
-from repro_torch.kernels import flash_attn_mrq as FA
 from repro_torch.kernels import int4_packed as F4
 from repro_torch.kernels import int8_fused as F8
 from repro_torch.kernels import ops
@@ -51,6 +51,8 @@ from repro_torch.models.dit import DiTCfg, dit_apply, params_from_numpy
 from repro_torch.quant.artifact import QuantArtifact
 from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import ServeEngine
+
+FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
 
 EXACT = tref.TOLERANCES["B4_B5_plain_vs_jax"][0]
 NM_FLIP_RATE = tref.TOLERANCES["B1_B2_norm_mod_plain_vs_jax_flip_rate"][0]
