@@ -8,13 +8,15 @@ kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 Phases (each fatal on failure; exit code 0 only when all pass):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
-             per source, in parallel); print the build seconds and the
-             card's name and power limit.
+             per source, in parallel); print the build seconds, the
+             card's name and power limit, and the int8 GEMM's SASS
+             (fatal unless it holds wgmma and TMA loads and no mma.sync).
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
-             fusions, G = 10 at a nonzero group: B1/B2 (bits 8 and 6),
-             B4/B5 (packed int4, K groups of 256 and x_proj's 16), B3
+             fusions, G = 10 at a nonzero group: B1/B2 and B6a/B6b
+             (bits 8 and 6, every int8 serving shape: qkv, proj, fc1,
+             fc2, ada, final, x_proj, t_mlp2, final_ada), B4/B5 (packed int4, K groups of 256 and x_proj's 16), B3
              (bits 8, 6 and 4) and B3b (packed kv, also held bit for bit
              against unpacked B3); the per-row-group kernels B6a/B6b
              (bits 8), B7a/B7b and B8 (bits 8, and 4 with packed kv) in
@@ -39,7 +41,11 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              times (CUDA events) beside the least time the card could
              take (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s,
              fp32 at 67 TFLOP/s), and the masked flash time beside the
-             unmasked one.
+             unmasked one. Then the int8 GEMM's calls at every serving
+             shape in device time (``launch/gemm_times.py``: the
+             profiler's kernel durations, quantize pass and GEMM apart)
+             beside their wrapper times and bounds; the kernels line's
+             ms for B1, B2, B6a, B6b and B11 is that device time.
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -133,11 +139,16 @@ def bound(nbytes: float, int8_ops: float, fp32_ops: float = 0.0):
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version at the serving shapes
 # ---------------------------------------------------------------------------
-LINEAR_CASES = [  # (op, M, K, N, fusion, kernel)
+LINEAR_CASES = [  # (op, M, K, N, fusion, kernel): every int8 serving shape
     ("ada", 8, 1152, 6912, "", "int8_matmul_fq"),
     ("qkv", 2048, 1152, 3456, "norm_mod", "int8_matmul_fq"),
     ("proj", 2048, 1152, 1152, "gate_residual", "int8_matmul_fq"),
+    ("fc1", 2048, 1152, 4608, "norm_mod", "int8_matmul_fq"),
     ("fc2", 2048, 4608, 1152, "gate_residual", "int8_matmul_mrq_fq"),
+    ("final", 2048, 1152, 32, "norm_mod", "int8_matmul_fq"),
+    ("x_proj", 2048, 16, 1152, "", "int8_matmul_fq"),
+    ("t_mlp2", 8, 1152, 1152, "", "int8_matmul_fq"),
+    ("final_ada", 8, 1152, 2304, "", "int8_matmul_fq"),
 ]
 INT4_CASES = [  # run with the fusion and without it
     ("x_proj", 2048, 16, 1152, "", "int4_matmul_fq"),
@@ -559,6 +570,11 @@ def int8_matmul_case(op, M, K, N, with_bias, dt, gen, timed):
         row.update(timed_row(run, 5, lib, nbytes, 2 * M * K * N, 0,
                              "int8_matmul", what,
                              "torch._int_mm + epilogue"))
+        from repro_torch.launch.gemm_times import device_ms
+        row["wrapper_ms"], row["ms"] = row["ms"], sum(
+            device_ms(run, 30).values())
+        log(f"  device time int8_matmul {what}: {row['ms']:.4f} ms (wrapper "
+            f"{row['wrapper_ms']:.4f} ms)")
     return row
 
 
@@ -732,6 +748,9 @@ def phase_kernels():
                 r = linear_case(op, M, K, N, fusion, kern, bits, dt, gen,
                                 timed_pass and TIMED[kern] == op)
                 rows.setdefault(kern, []).append(r)
+                r = linear_case(op, M, K, N, fusion, kern, bits, dt, gen,
+                                False, vec=True)
+                rows.setdefault(kern + "_vec", []).append(r)
             rows.setdefault("flash_attn_mrq", []).append(
                 flash_case(bits, dt, gen, timed_pass))
         for op, M, K, N, fusion, kern in INT4_CASES:
@@ -748,9 +767,9 @@ def phase_kernels():
             flash_case(4, dt, gen, bf16, packed_kv=True))
     # the per-row-group kernels of the continuous-batching path, bf16
     for op, M, K, N, fusion, kern, bits in VEC_CASES:
-        rows[kern + "_vec"] = [linear_case(op, M, K, N, fusion, kern, bits,
-                                           torch.bfloat16, gen, True,
-                                           vec=True)]
+        rows.setdefault(kern + "_vec", []).append(linear_case(
+            op, M, K, N, fusion, kern, bits, torch.bfloat16, gen, True,
+            vec=True))
     rows["flash_attn_mrq_vec"] = [flash_case(8, torch.bfloat16, gen, True,
                                              vec=True)]
     rows["flash_attn_mrq_vec_packed_kv"] = [flash_case(
@@ -797,6 +816,28 @@ def phase_kernels():
         m["max_abs_err"] = max(r["max_abs_err"] for r in rs)
         merged[name] = m
     return merged
+
+
+GEMM_TIMED = {"int8_matmul_fq": "qkv", "int8_matmul_mrq_fq": "fc2",
+              "int8_matmul_fq_vec": "qkv", "int8_matmul_mrq_fq_vec": "fc2"}
+
+
+def phase_gemm_device(rows):
+    """The int8 GEMM's calls (B1; B2 at fc2; B6a/B6b at qkv and fc2) at
+    every serving shape, bf16, bits 8, in device time: the profiler's
+    kernel durations over 30 calls, quantize pass and GEMM apart, beside
+    the wrapper time (CUDA events, host included) and the call's bound.
+    The kernels line's ms for B1, B2, B6a and B6b is the device time at
+    qkv (fc2 for B2, B6b)."""
+    from repro_torch.launch import gemm_times
+    log("int8 GEMM per serving shape (bf16, bits 8), device time per call:")
+    table = gemm_times.time_shapes(reps=30, vec=True, log=log)
+    for r in table:
+        if GEMM_TIMED.get(r["kernel"]) == r["op"]:
+            row = rows[r["kernel"]]
+            row["wrapper_ms"], row["ms"] = row["ms"], r["device_ms"]
+            row["bound_ms"], row["bound_by"] = r["bound_ms"], r["bound_by"]
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -1289,8 +1330,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"card: {smi.stdout.strip()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    sass = kbuild.sass_counts("int8_fused", "gemm_kernel")
+    log(f"int8 GEMM (gemm_kernel) SASS: {sass['IGMMA']} IGMMA (wgmma), "
+        f"{sass['UTMALDG']} UTMALDG (TMA loads), {sass['IMMA']} IMMA and "
+        f"{sass['HMMA']} HMMA (mma.sync)")
+    if not (sass["IGMMA"] and sass["UTMALDG"]) or sass["IMMA"] or sass["HMMA"]:
+        raise AssertionError("the int8 GEMM is not built on wgmma and TMA")
 
     rows = phase_kernels()
+    phase_gemm_device(rows)
     drifts = phase_trained()
     launches = phase_serve()
     for name, n in phase_entry_points().items():

@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas kernels repro/kernels/int8_fused.py::int8_matmul_fq
 // (B1), ::int8_matmul_mrq_fq (B2), ::int8_matmul_fq_vec (B6a) and
-// ::int8_matmul_mrq_fq_vec (B6b):
+// ::int8_matmul_mrq_fq_vec (B6b), and repro/kernels/int8_matmul.py::
+// int8_matmul (B11):
 //
 //   B1: y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1) @ wq)
 //            - corr[g]) * scale[g] + bias
@@ -17,203 +18,644 @@
 //   (gs = 1; B1/B2 pass gs = 0 and read gv[0]): each row quantizes with
 //   its group's steps and dequantizes with its group's scale (and corr)
 //   row, gathered from the full (G, .) stacks. One launch serves a batch
-//   whose rows sit at different TGQ groups, and the weights stream once;
-//   the per-row read adds one L1-resident int32 load per output element
-//   to the epilogue and one per quantized word.
+//   whose rows sit at different TGQ groups, and the weights stream once.
 //
-// What bounds it on the card: at the DiT-XL/2 serving shapes (M = 2048,
-// K, N = 1152..6912) the s8 products are compute-bound on the tensor cores
-// (1979 TOP/s int8 dense); the fp prologue (an IEEE divide per activation
-// element) and the weight stream are the next costs.
+// Two launches per call: quantize_kernel (csrc/common.cuh) runs the
+// prologue and the quantize once per activation element and writes the
+// codes, (M, Kp) int8 with K zero-padded to 16 bytes (B2: two disjoint
+// region-code tensors); gemm_kernel multiplies them by the weights and
+// runs the epilogue.
 //
-// Design: two launches per call.
-// 1. quantize_kernel runs the prologue and the quantize ONCE per
-//    activation element and writes the codes, K padded to a multiple of
-//    64 with zero codes (B2 writes the two disjoint region-code tensors).
-//    On the TPU the quantize lived in the matmul's prologue to keep the
-//    codes out of HBM; here an M x K byte tensor costs microseconds of
-//    bandwidth, whereas redoing the divide once per 128-wide N tile (the
-//    fused form, this kernel's first version) cost more than the products.
-// 2. gemm_kernel: one CTA per 128 x 128 output tile, 8 warps of 64 x 32,
-//    mma.sync.m16n8k32 s8 x s8 -> s32 (exact), fed by a 3-stage cp.async
-//    ring of 64-deep k tiles. The weights arrive pre-transposed to (N, Kp)
-//    (k-contiguous, the layout the mma's B operand wants; built once per
-//    weight by the wrapper). B2 feeds each weight fragment to two
-//    accumulators, so the weights stream once. The K loop that the Pallas
-//    grid ran in sequence is the loop inside the CTA; the epilogue
-//    dequantizes, adds bias, applies gate + residual and writes once.
+// What bounds gemm_kernel on the card, at the DiT-XL/2 serving shapes
+// (2B = 8 rows of 256 tokens, M = 2048; d 1152, d_ff 4608):
+// - qkv (2048 x 1152 x 3456), fc1 (x 4608) and fc2 (4608 -> 1152, two
+//   region products) are bound by the int8 tensor-core rate (1979 TOP/s:
+//   8.2, 11.0 and 22.0 us); proj (1152 -> 1152) by its bytes (4.6 us).
+//   Only wgmma reaches that rate; it wants both operands K-major in
+//   shared memory, fed fast enough that the tensor cores never wait.
+// - At N = 1152 a 128 x 128 tile grid has 144 tiles for 132 SMs: two
+//   waves, the second almost empty.
+// - ada (8 x 1152 x 6912), t_mlp and final_ada (M = 8) are streams of
+//   their weights (ada 8 MB: 2.4 us); one row tile of 128 leaves most of
+//   the card idle unless the weight is spread over every SM.
+// - The epilogue writes M x N outputs (qkv: 14 MB of bf16, 4.2 us of
+//   bandwidth) and, with gate + residual, reads as many again.
+//
+// Design:
+// - Tiles of 128 x 144 (BM x BN): N = 1152 is 8 column tiles, and
+//   M = 2048 gives 128 tiles for 132 SMs (qkv 384, fc1 512).
+// - Persistent: one CTA per SM (grid = min(units, SMs)) walks the work
+//   units (a tile, or a tile's K split) in order, so the producer loads
+//   the next unit while the consumers run this one's epilogue.
+// - Warp specialisation, 3 warpgroups. Warpgroup 0 gives its registers
+//   away (setmaxnreg 40; the consumers take 232). Its first thread loads
+//   the codes' and the weights' k tiles (128 bytes deep) with TMA
+//   (cp.async.bulk.tensor.2d, 128-byte swizzle) into a ring of 5 stages
+//   (B2: 3), arming a full mbarrier with the stage's bytes; its warps
+//   1-3 stage each unit's column rows (below) behind their own full and
+//   empty mbarriers. Warpgroups 1 and 2 each own 64 rows and run
+//   wgmma.mma_async m64n144k32 s8 x s8 -> s32 from shared-memory
+//   descriptors, one commit group in flight, freeing a stage on its empty
+//   mbarrier once its products are done. Both operands are K-major as
+//   8-bit wgmma requires: the codes are (M, Kp) and the weights are
+//   cached transposed to (N, Kp) with their tensor map (the wrapper's
+//   layout cache). TMA's zero fill outside the tensor replaces predicated
+//   loads for ragged M and N and for K below a tile (x_proj: K = 16).
+// - B2 takes two A tiles (one per region) and one weight tile per stage
+//   and feeds each weight tile to two accumulators, so the weights stream
+//   once: 2 x 72 s32 registers per consumer thread.
+// - Split K: s32 sums are exact in any order (|sum| <= 4608 * 128 * 128
+//   < 2^31), so where the tile grid fills less than half the card (M = 8,
+//   N = 32) the wrapper splits the k tiles (int8_fused.py::split_k). Each
+//   split adds its partial sums into an s32 workspace with atomics; the
+//   last split of a tile to finish (an atomic count) reads the sums back,
+//   zeroing the workspace and the count for the next launch, and runs the
+//   epilogue.
+// - Epilogue: the unit's column rows (bias; scale and corr, or both
+//   scales, of the call's group, or of the first 10 groups for gs = 1;
+//   later groups read device memory) wait in shared memory. Each consumer
+//   group dequantizes its accumulators in registers and stages y in its
+//   own buffer, 72 columns at a time; then gate, residual and out move 16
+//   bytes a thread (one column at a time at a ragged edge or an unaligned
+//   pointer). The epilogue does not overlap the consumers' next products.
 //
 // Exactness: see csrc/common.cuh (quantize_kernel); the epilogue rounds
-// each step (__fmul_rn/__fadd_rn) in the reference's op order. The group
-// index is read on the device from an int32 pointer (capturable in a CUDA
-// graph later). Ragged
-// M/N are masked in-kernel (zero-filled loads, guarded stores); padded K
-// columns carry zero codes against zero weights, so they add nothing.
+// each step (__fmul_rn/__fadd_rn) in the reference's op order, and the
+// build passes -fmad=false. The group index is read on the device from
+// an int32 pointer and clamped into [0, G) (group_at). A wait on an
+// mbarrier that never completes traps, so a pipeline fault fails the
+// launch instead of hanging the card.
 #include "common.cuh"
+
+#include <cuda.h>      // CUtensorMap and its enums; cuTensorMapEncodeTiled
+#include <limits.h>    // is fetched at run time (no libcuda at link time)
+#include <string.h>
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256, STAGES = 3;
-constexpr int SROW = BK + 16;   // bytes per smem row: conflict-free fragment loads
+constexpr int BM = 128;         // rows per CTA: two consumer warpgroups of 64
+constexpr int BN = 144;         // columns per CTA (wgmma m64n144k32)
+constexpr int BK = 128;         // k tile: 128 bytes, one swizzle row
+constexpr int KPAD = 16;        // codes and weights pad K to 16 bytes (TMA)
+constexpr int THREADS = 384;    // warpgroup 0 loads, 1 and 2 multiply
+constexpr int GST = 10;         // groups whose column rows are staged
+constexpr int HALF = BN / 2;    // columns of y staged at a time
+constexpr int YS = HALF + 4;    // floats per staged row (16-byte rows)
+constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
+
+template <bool MRQ>
+struct Layout {                 // dynamic shared memory (1024-aligned)
+  static constexpr int R = MRQ ? 2 : 1;          // A tiles per stage
+  static constexpr int STAGES = MRQ ? 3 : 5;
+  static constexpr int STAGE = R * A_BYTES + B_BYTES;
+  static constexpr int Y = STAGES * STAGE;       // y: 2 groups x 64 x YS f32
+  static constexpr int PARAMS = Y + 2 * 64 * YS * 4;  // bias, GST rows of a, of b
+  // mbarriers: full[STAGES], empty[STAGES], the column rows' full, empty
+  static constexpr int BARS = PARAMS + (1 + 2 * GST) * BN * 4;
+  static constexpr int FLAG = BARS + (2 * STAGES + 2) * 8;  // split K's
+  static constexpr int BYTES = FLAG + 16;
+  static_assert(STAGE % 1024 == 0, "stages keep the swizzle atoms aligned");
+  static_assert(BYTES <= 232448, "fits in an SM's shared memory");
+};
 
 struct GArgs {          // gemm_kernel
-  const int8_t* qa; const int8_t* qb; const int8_t* wt;   // wt: (N, Kp)
   const float* scale_a; const float* scale_b;  // B1: scale     B2: scale_neg, scale_pos
   const int* corr; const float* bias; const int* g;
   const int* bv; const float* gate; const void* res; void* out;
+  int* ws;              // split K: R planes of M x N s32 sums, then one
+                        // count per output tile; zero between launches
   int M, N, Kp, res_bf16, out_bf16;
   int gs;               // group stride: 0 (B1, B2) or 1 per row (B6a, B6b)
   int G;                // groups in the scale (and corr) stacks
+  int ks;               // k splits per output tile
+  int vec_ok;           // N % 8 == 0, out/gate/res 16-byte aligned
+  int pairs_ok;         // N even, the scale (and corr) stacks 8-byte aligned
 };
 
-template <bool MRQ>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GArgs a) {
-  constexpr int R = MRQ ? 2 : 1;
-  constexpr int TILE = BM * SROW;               // bytes of one operand tile
-  extern __shared__ __align__(16) uint8_t smem[];
-  // stage s: A region r at smem + (s*(R+1) + r)*TILE, B at + (s*(R+1) + R)*TILE
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;       // 2 x 4 warps, 64 x 32 each
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int M = a.M, N = a.N, Kp = a.Kp, nk = Kp / BK;
-  const int8_t* qsrc[2] = {a.qa, a.qb};
-
-  auto load = [&](int stage, int k0) {
-    uint8_t* base = smem + stage * (R + 1) * TILE;
-    // 128 rows x 4 chunks of 16 B per operand: 2 chunks per thread
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int idx = tid + c * THREADS, r = idx >> 2, ch = (idx & 3) * 16;
-#pragma unroll
-      for (int rg = 0; rg < R; ++rg) {
-        const bool ok = m0 + r < M;
-        const int8_t* src = qsrc[rg] + (long)(ok ? m0 + r : 0) * Kp + k0 + ch;
-        cp_async16(base + rg * TILE + r * SROW + ch, src, ok);
-      }
-      const bool okb = n0 + r < N;
-      const int8_t* srcb = a.wt + (long)(okb ? n0 + r : 0) * Kp + k0 + ch;
-      cp_async16(base + R * TILE + r * SROW + ch, srcb, okb);
-    }
-  };
-
-  int acc[R][4][4][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][i][j][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s * BK);
-    cp_async_commit();
+__device__ __forceinline__ uint32_t su32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait until the barrier's phase of this parity has completed; trap after
+// ~2^28 polls (seconds), far beyond any legitimate wait.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (unsigned n = 0;; ++n) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+    if (ok) return;
+    if (n == (1u << 28)) __trap();
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const uint8_t* base = smem + (kt % STAGES) * (R + 1) * TILE;
-    const uint8_t* sB = base + R * TILE;
+}
+// One 2-D TMA box (k, row) of a tensor map into shared memory, counted
+// on the barrier's transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int k, int row, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row),
+         "r"(bar)
+      : "memory");
+}
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle: 8-row core groups 1024 bytes apart (SBO), LBO unused.
+// Adding 2 (32 bytes) steps one k32 slice along the swizzled row.
+__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32)
+         | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads across the async MMAs.
+__device__ __forceinline__ void fence_regs(int (&d)[72]) {
 #pragma unroll
-    for (int kc = 0; kc < BK; kc += 32) {
-      unsigned bf[4][2];
+  for (int i = 0; i < 72; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// d[64 x 144] += A[64 x 32] . B[144 x 32]^T, s8 x s8 -> s32, both from
+// shared memory. d[4j + e]: row 16 * warp + lane / 4 + 8 * (e >> 1),
+// column 8j + 2 * (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_n144(int (&d)[72], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One work unit of a CTA: an output tile and its split's k tiles [kb, ke).
+struct Unit { int tile, m0, n0, kb, ke; };
+
+__device__ __forceinline__ Unit unit_at(int u, int tn, int ks, int nk) {
+  const int t = u / ks, z = u % ks;     // a tile's splits are neighbours
+  return {t, (t / tn) * BM, (t % tn) * BN, (int)((long)z * nk / ks),
+          (int)((long)(z + 1) * nk / ks)};
+}
+
+__device__ __forceinline__ void unpack8(const float4& a, const float4& b,
+                                        float (&v)[8]) {
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+// 8 values from 16-byte aligned memory (32 bytes of f32, 16 of bf16)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  unpack8(__ldg(reinterpret_cast<const float4*>(p)),
+          __ldg(reinterpret_cast<const float4*>(p) + 1), v);
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint8_t* p = sB + (wn * 32 + nt * 8 + gid) * SROW + kc + tig * 4;
-        bf[nt][0] = *reinterpret_cast<const unsigned*>(p);
-        bf[nt][1] = *reinterpret_cast<const unsigned*>(p + 16);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x; v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Epilogue, second pass: y of n <= 8 columns of one row (staged, 16-byte
+// aligned), (+ gate * y + residual), one write: 16 bytes a thread where
+// the row allows, else one column at a time.
+__device__ __forceinline__ void store_chunk(const GArgs& a, int row, int col,
+                                            int n, const float* ys) {
+  float y[8];
+  unpack8(*reinterpret_cast<const float4*>(ys),
+          *reinterpret_cast<const float4*>(ys + 4), y);
+  const long o = (long)row * a.N + col;
+  if (n == 8 && a.vec_ok) {
+    if (a.gate) {
+      float gt[8], rs[8];
+      load8(a.gate + (long)a.bv[row] * a.N + col, gt);
+      if (a.res_bf16) load8(static_cast<const __nv_bfloat16*>(a.res) + o, rs);
+      else load8(static_cast<const float*>(a.res) + o, rs);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[i] = __fadd_rn(rs[i], __fmul_rn(gt[i], y[i]));
+    }
+    if (a.out_bf16) store8(static_cast<__nv_bfloat16*>(a.out) + o, y);
+    else store8(static_cast<float*>(a.out) + o, y);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i >= n) break;
+    float v = y[i];
+    if (a.gate) {
+      const float r = a.res_bf16
+          ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o + i])
+          : static_cast<const float*>(a.res)[o + i];
+      v = __fadd_rn(r, __fmul_rn(a.gate[(long)a.bv[row] * a.N + col + i], v));
+    }
+    if (a.out_bf16) static_cast<__nv_bfloat16*>(a.out)[o + i] = __float2bfloat16_rn(v);
+    else static_cast<float*>(a.out)[o + i] = v;
+  }
+}
+
+// The staging warps (1-3 of the producer group): for each unit, once the
+// consumers are done with the last unit's rows, the unit's column rows
+// (bias; the scale and corr, or both scales, of the call's group, or of
+// the first GST groups for gs = 1; zero past N) into shared memory.
+template <bool MRQ>
+__device__ __forceinline__ void stage_rows(const GArgs& a, uint8_t* dst,
+                                           uint32_t pfull, uint32_t pempty,
+                                           int t, int units, int tn, int nk) {
+  float* bias_s = reinterpret_cast<float*>(dst);
+  float* pa = bias_s + BN;
+  float* pb = pa + GST * BN;
+  const int N = a.N, g0 = group_at(a.g, 0, 0, a.G);
+  const int nst = a.gs ? min(a.G, GST) : 1;
+  int n = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+    const int n0 = unit_at(u, tn, a.ks, nk).n0;
+    if (n > 0) mbar_wait(pempty, (n - 1) & 1);
+    for (int i = t; i < BN; i += 96)
+      bias_s[i] = n0 + i < N ? a.bias[n0 + i] : 0.f;
+    for (int i = t; i < nst * BN; i += 96) {
+      const int c = n0 + i % BN;
+      const long o = (long)(a.gs ? i / BN : g0) * N + c;
+      pa[i] = c < N ? a.scale_a[o] : 0.f;
+      pb[i] = c < N ? (MRQ ? a.scale_b[o] : __int_as_float(a.corr[o])) : 0.f;
+    }
+    mbar_arrive(pfull);           // release: the rows are visible
+  }
+}
+
+template <bool MRQ>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ CUtensorMap map_w, const GArgs a) {
+  using L = Layout<MRQ>;
+  constexpr int R = L::R, S = L::STAGES;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sbase = su32(smem);
+  const uint32_t full = sbase + L::BARS, empty = full + 8 * S;
+  const uint32_t pfull = empty + 8 * S, pempty = pfull + 8;
+  const int tn = (a.N + BN - 1) / BN, nk = (a.Kp + BK - 1) / BK;
+  const int units = tn * ((a.M + BM - 1) / BM) * a.ks;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);                // the producer's expect_tx
+      mbar_init(empty + 8 * s, 2);               // one per consumer group
+    }
+    mbar_init(pfull, 96);         // the staging warps' threads
+    mbar_init(pempty, 2);         // one per consumer group
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  // warp-uniform by construction, so the register split below applies
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+
+  if (wg == 0) {  // -- producer: one thread keeps the ring full ---------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;                 // k tiles loaded so far, over all units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_at(u, tn, a.ks, nk);
+        for (int i = w.kb; i < w.ke; ++i, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+          const uint32_t st = sbase + s * L::STAGE, bar = full + 8 * s;
+          mbar_expect_tx(bar, L::STAGE);
+          tma_load(st, &map_a, i * BK, w.m0, bar);
+          if (MRQ) tma_load(st + A_BYTES, &map_b, i * BK, w.m0, bar);
+          tma_load(st + R * A_BYTES, &map_w, i * BK, w.n0, bar);
+        }
       }
+    } else if (threadIdx.x >= 32) {  // warps 1-3: each unit's column rows
+      stage_rows<MRQ>(a, smem + L::PARAMS, pfull, pempty, threadIdx.x - 32,
+                      units, tn, nk);
+    }
+  } else {  // -- consumers: warpgroups 1 and 2, 64 rows each ---------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = threadIdx.x - 128, cw = ct >> 7, lt = ct & 127;
+    const int lane = threadIdx.x & 31, warp = lt >> 5;
+    const int M = a.M, N = a.N;
+    const int r0 = cw * 64 + warp * 16 + (lane >> 2);  // rows r0, r0 + 8
+    const int cq = 2 * (lane & 3);                     // + 8j: column pair
+    const int g0 = group_at(a.g, 0, 0, a.G);
+    volatile int* flag = reinterpret_cast<volatile int*>(smem + L::FLAG);
+    int it = 0;                   // k tiles consumed so far, over all units
+    const float* bias_s = reinterpret_cast<const float*>(smem + L::PARAMS);
+    const float* pa = bias_s + BN;  // scale (B2: scale_neg) rows
+    const float* pb = pa + GST * BN;  // corr (as int bits) or scale_pos rows
+    float* ys = reinterpret_cast<float*>(smem + L::Y) + cw * 64 * YS;
+    const int nst = a.gs ? min(a.G, GST) : 1;      // staged groups
+    int n = 0;                    // units done
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++n) {
+      const Unit w = unit_at(u, tn, a.ks, nk);
+      int acc[R][72];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const uint8_t* p = base + r * TILE + (wm * 64 + mt * 16 + gid) * SROW
-                             + kc + tig * 4;
-          unsigned af[4];
-          af[0] = *reinterpret_cast<const unsigned*>(p);
-          af[1] = *reinterpret_cast<const unsigned*>(p + 8 * SROW);
-          af[2] = *reinterpret_cast<const unsigned*>(p + 16);
-          af[3] = *reinterpret_cast<const unsigned*>(p + 8 * SROW + 16);
+        for (int e = 0; e < 72; ++e) acc[r][e] = 0;
+        fence_regs(acc[r]);
+      }
+      for (int i = w.kb; i < w.ke; ++i, ++it) {
+        const int s = it % S;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        const uint32_t st = sbase + s * L::STAGE;
+        const uint64_t da = desc(st + cw * 64 * BK);
+        const uint64_t dw = desc(st + R * A_BYTES);
+        wgmma_fence();
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[r][mt][nt], af, bf[nt][0], bf[nt][1]);
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          wgmma_n144(acc[0], da + 2 * kk, dw + 2 * kk);
+          if (MRQ) wgmma_n144(acc[R - 1], desc(st + A_BYTES + cw * 64 * BK)
+                                              + 2 * kk, dw + 2 * kk);
         }
+        wgmma_commit();
+        wgmma_wait<1>();            // the previous k tile's products are done
+        if (i > w.kb && lt == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < R; ++r) fence_regs(acc[r]);
+      if (lt == 0) mbar_arrive(empty + 8 * ((it - 1) % S));  // the last one
+
+      if (a.ks > 1) {  // -- split K: sum in the workspace; the last CTA goes on
+        const long plane = (long)M * N;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 72; ++e) {
+            const int row = w.m0 + r0 + ((e >> 1) & 1) * 8;
+            const int col = w.n0 + (e >> 2) * 8 + cq + (e & 1);
+            if (row < M && col < N)
+              atomicAdd(a.ws + r * plane + (long)row * N + col, acc[r][e]);
+          }
+        __threadfence();
+        bar_sync(1, 256);
+        if (ct == 0) {
+          int* cnt = a.ws + R * plane + w.tile;
+          const int last = atomicAdd(cnt, 1) == a.ks - 1;
+          if (last) *cnt = 0;
+          *flag = last;
+        }
+        bar_sync(1, 256);
+        if (!*flag) {               // another CTA finishes this tile
+          if (lt == 0) mbar_arrive(pempty);
+          continue;
+        }
+        __threadfence();
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 72; ++e) {
+            const int row = w.m0 + r0 + ((e >> 1) & 1) * 8;
+            const int col = w.n0 + (e >> 2) * 8 + cq + (e & 1);
+            if (row < M && col < N)
+              acc[r][e] = atomicExch(a.ws + r * plane + (long)row * N + col, 0);
+          }
+      }
+
+      // -- epilogue, while the producer fills the ring with the next
+      //    unit's tiles: dequant (+ bias) from the staged column rows in
+      //    registers, y staged 72 columns at a time, then 8 columns a
+      //    thread (+ gate * y + residual) and one write
+      mbar_wait(pfull, n & 1);      // the column rows are staged
+      // each row's column rows: staged (its group's slot), or in device
+      // memory for a group past the staged ones; indexed by column
+      const float* sa_row[2]; const float* sb_row[2]; const int* cr_row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = w.m0 + r0 + 8 * h;
+        const int grp = !a.gs ? g0 : row < M ? group_at(a.g, row, 1, a.G) : 0;
+        const bool st = !a.gs || grp < nst;
+        const long off = st ? (long)(a.gs ? grp : 0) * BN - w.n0
+                            : (long)grp * N;
+        sa_row[h] = (st ? pa : a.scale_a) + off;
+        sb_row[h] = MRQ ? (st ? pb : a.scale_b) + off : nullptr;
+        cr_row[h] = MRQ ? nullptr
+                        : (st ? reinterpret_cast<const int*>(pb) : a.corr) + off;
+      }
+      const bool pairs = a.pairs_ok;   // 8-byte aligned column pairs
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int jj = 0; jj < HALF / 8; ++jj) {
+          const int j = p * (HALF / 8) + jj, cl = 8 * j + cq;
+          // the pair's column (past N: the last pair, results unused)
+          const int col = min(w.n0 + cl, N - (pairs ? 2 : 1));
+          const float2 bias = *reinterpret_cast<const float2*>(bias_s + cl);
+          float2 sa[2], sb[2];
+          int2 cr[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h == 1 && !a.gs) {      // one group: row 8's rows are row 0's
+              sa[1] = sa[0]; sb[1] = sb[0]; cr[1] = cr[0];
+            } else if (pairs) {
+              sa[h] = *reinterpret_cast<const float2*>(sa_row[h] + col);
+              if (MRQ) sb[h] = *reinterpret_cast<const float2*>(sb_row[h] + col);
+              else cr[h] = *reinterpret_cast<const int2*>(cr_row[h] + col);
+            } else {
+              const int c1 = min(col + 1, N - 1);
+              sa[h] = make_float2(sa_row[h][col], sa_row[h][c1]);
+              if (MRQ) sb[h] = make_float2(sb_row[h][col], sb_row[h][c1]);
+              else cr[h] = make_int2(cr_row[h][col], cr_row[h][c1]);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 4 * j + 2 * h;
+            float2 y;
+            if (!MRQ) {
+              y.x = __fadd_rn(__fmul_rn((float)(acc[0][e] - cr[h].x), sa[h].x), bias.x);
+              y.y = __fadd_rn(__fmul_rn((float)(acc[0][e + 1] - cr[h].y), sa[h].y),
+                              bias.y);
+            } else {
+              y.x = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[0][e], sa[h].x),
+                                        __fmul_rn((float)acc[R - 1][e], sb[h].x)),
+                              bias.x);
+              y.y = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[0][e + 1], sa[h].y),
+                                        __fmul_rn((float)acc[R - 1][e + 1], sb[h].y)),
+                              bias.y);
+            }
+            *reinterpret_cast<float2*>(ys + (r0 - cw * 64 + 8 * h) * YS
+                                       + cl - p * HALF) = y;
+          }
+        }
+        bar_sync(2 + cw, 128);      // this group's half tile is staged
+        if (p == 1 && lt == 0) mbar_arrive(pempty);   // rows read
+        for (int idx = lt; idx < 64 * (HALF / 8); idx += 128) {
+          const int rl = idx / (HALF / 8), c8 = (idx % (HALF / 8)) * 8;
+          const int row = w.m0 + cw * 64 + rl, col = w.n0 + p * HALF + c8;
+          if (row < M && col < N)
+            store_chunk(a, row, col, min(8, N - col), ys + rl * YS + c8);
+        }
+        bar_sync(2 + cw, 128);      // ... and written: the buffer is free
       }
     }
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk) load(nxt % STAGES, nxt * BK);
-    cp_async_commit();
   }
-
-  // -- epilogue: dequant (+ bias) (+ gate * y + residual), one write ------
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mt * 16 + gid + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + nt * 8 + tig * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        const long gc = (long)group_at(a.g, row, a.gs, a.G) * N + col;
-        float y;
-        if (!MRQ) {
-          const int v = acc[0][mt][nt][e] - a.corr[gc];
-          y = __fadd_rn(__fmul_rn((float)v, a.scale_a[gc]), a.bias[col]);
-        } else {
-          y = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[0][mt][nt][e], a.scale_a[gc]),
-                                  __fmul_rn((float)acc[R - 1][mt][nt][e], a.scale_b[gc])),
-                        a.bias[col]);
-        }
-        const long o = (long)row * N + col;
-        if (a.gate) {
-          const float r = a.res_bf16
-              ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o])
-              : static_cast<const float*>(a.res)[o];
-          y = __fadd_rn(r, __fmul_rn(a.gate[(long)a.bv[row] * N + col], y));
-        }
-        if (a.out_bf16) static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(y);
-        else static_cast<float*>(a.out)[o] = y;
-      }
 }
+
+// -- host side ---------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {         // libcuda's cuTensorMapEncodeTiled, once
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a K-major (rows, Kp) int8 matrix, in boxes of box_rows x BK
+// bytes, 128-byte swizzle, zero fill outside the matrix.
+cudaError_t make_map(CUtensorMap* map, const void* p, int rows, int Kp,
+                     int box_rows) {
+  EncodeTiled fn = encoder();
+  if (!fn) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(p) % 16 || Kp % KPAD)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[2] = {(cuuint64_t)Kp, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kp};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(p), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+int aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 template <bool MRQ>
-cudaError_t launch_gemm(const GArgs& g, cudaStream_t s) {
-  constexpr int R = MRQ ? 2 : 1;
-  const size_t smem = (size_t)STAGES * (R + 1) * BM * SROW;
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<MRQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
+                        const CUtensorMap& mw, GArgs g, cudaStream_t s) {
+  constexpr int bytes = Layout<MRQ>::BYTES;
+  static cudaError_t attr[64];     // once a device: the shared-memory
+  static int sms[64];              // size and the SM count
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  gemm_kernel<MRQ><<<grid, THREADS, smem, s>>>(g);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    attr[dev] = cudaFuncSetAttribute(
+        gemm_kernel<MRQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (attr[dev] == cudaSuccess)
+      attr[dev] = cudaDeviceGetAttribute(&sms[dev],
+                                         cudaDevAttrMultiProcessorCount, dev);
+    if (attr[dev] != cudaSuccess) sms[dev] = 1;
+  }
+  if (attr[dev] != cudaSuccess) return attr[dev];
+  const int nk = (g.Kp + BK - 1) / BK;
+  if (g.ks < 1 || g.ks > nk || (g.ks > 1 && !g.ws))
+    return cudaErrorInvalidValue;
+  g.vec_ok = g.N % 8 == 0 && aligned16(g.out)
+             && (!g.gate || (aligned16(g.gate) && aligned16(g.res)));
+  g.pairs_ok = g.N % 2 == 0 && aligned8(g.scale_a)
+               && aligned8(MRQ ? (const void*)g.scale_b : (const void*)g.corr);
+  // persistent: one CTA per SM (or per unit) walks the units
+  const long units = (long)((g.N + BN - 1) / BN) * ((g.M + BM - 1) / BM) * g.ks;
+  if (units > INT_MAX) return cudaErrorInvalidValue;
+  gemm_kernel<MRQ><<<(unsigned)(units < sms[dev] ? units : sms[dev]), THREADS,
+                     bytes, s>>>(ma, mb, mw, g);
   return cudaGetLastError();
-}
-
-template <bool MRQ, typename TX>
-cudaError_t run(const QArgs& q, const GArgs& g, cudaStream_t s) {
-  cudaError_t e = launch_quantize<MRQ, TX>(q, s);
-  if (e != cudaSuccess) return e;
-  return launch_gemm<MRQ>(g, s);
 }
 
 }  // namespace
 
-// codes_a/codes_b: (M, Kp) int8 scratch allocated by the caller; wt: the
-// weights transposed to (N, Kp), zero-padded along K; Kp % 64 == 0.
-// g: device int32 group index (gs = 0) or per-row (M,) vector (gs = 1),
-// each clamped into [0, G) on the device.
+// The weights' tensor map: wt (N, Kp) int8, Kp % 16 == 0, in boxes of
+// BN rows; written to map (128 host bytes, kept by the caller with wt).
+extern "C" int int8_weight_map(void* map, const void* wt, int N, int Kp) {
+  if (N <= 0 || Kp <= 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  const cudaError_t e = make_map(&m, wt, N, Kp, BN);
+  if (e == cudaSuccess) memcpy(map, &m, sizeof m);
+  return (int)e;
+}
+
+// codes_a/codes_b: (M, Kp) int8 scratch allocated by the caller; wmap: the
+// tensor map of the weights transposed to (N, Kp) (int8_weight_map); ws:
+// the split-K workspace (zeroed; 0 when ks == 1). g: device int32 group
+// index (gs = 0) or per-row (M,) vector (gs = 1), each clamped into
+// [0, G) on the device.
 extern "C" int int8_matmul_launch(
-    const void* x, const void* wt, const void* s_a, const void* s_b,
+    const void* x, const void* wmap, const void* s_a, const void* s_b,
     const void* scale_a, const void* scale_b, const void* corr,
     const void* bias, const void* g, const void* ps, const void* bv,
     const void* mu, const void* rsig, const void* sh, const void* sc,
     const void* gate, const void* res, void* out, void* codes_a,
-    void* codes_b, int M, int K, int Kp, int N, int half, int x_bf16,
-    int res_bf16, int out_bf16, int mrq, int gs, int G, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % BK || (gs != 0 && gs != 1)
+    void* codes_b, void* ws, int M, int K, int Kp, int N, int half,
+    int x_bf16, int res_bf16, int out_bf16, int mrq, int gs, int G, int ks,
+    void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % KPAD || (gs != 0 && gs != 1)
       || G <= 0)
     return (int)cudaErrorInvalidValue;
   QArgs q;
@@ -225,37 +667,48 @@ extern "C" int int8_matmul_launch(
   q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
   q.M = M; q.K = K; q.Kq = Kp; q.half = half; q.gk = Kp; q.gkp = Kp; q.gs = gs; q.G = G;
   GArgs a;
-  a.qa = q.qa; a.qb = q.qb; a.wt = static_cast<const int8_t*>(wt);
   a.scale_a = static_cast<const float*>(scale_a);
   a.scale_b = static_cast<const float*>(scale_b);
   a.corr = static_cast<const int*>(corr); a.bias = static_cast<const float*>(bias);
   a.g = q.g; a.bv = q.bv; a.gate = static_cast<const float*>(gate);
-  a.res = res; a.out = out;
+  a.res = res; a.out = out; a.ws = static_cast<int*>(ws);
   a.M = M; a.N = N; a.Kp = Kp; a.res_bf16 = res_bf16; a.out_bf16 = out_bf16;
-  a.gs = gs; a.G = G;
+  a.gs = gs; a.G = G; a.ks = ks;
+  CUtensorMap ma, mb, mw;
+  memcpy(&mw, wmap, sizeof mw);
+  cudaError_t e = make_map(&ma, codes_a, M, Kp, BM);
+  if (e == cudaSuccess) e = make_map(&mb, codes_b, M, Kp, BM);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (mrq) e = x_bf16 ? run<true, __nv_bfloat16>(q, a, s) : run<true, float>(q, a, s);
-  else e = x_bf16 ? run<false, __nv_bfloat16>(q, a, s) : run<false, float>(q, a, s);
-  return (int)e;
+  if (mrq) e = x_bf16 ? launch_quantize<true, __nv_bfloat16>(q, s)
+                      : launch_quantize<true, float>(q, s);
+  else e = x_bf16 ? launch_quantize<false, __nv_bfloat16>(q, s)
+                  : launch_quantize<false, float>(q, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)(mrq ? launch_gemm<true>(ma, mb, mw, a, s)
+                   : launch_gemm<false>(ma, mb, mw, a, s));
 }
 
 // B11 (repro/kernels/int8_matmul.py::int8_matmul): the caller's codes,
 // quantized beforehand, through gemm_kernel<false> with one group and no
 // quantize pass: y = (xq @ wq - corr) * scale + bias, B1's epilogue.
-// xq: (M, Kp) int8, zero-padded along K; wt: the weights as (N, Kp);
-// scale, bias: (N,) f32; corr: (N,) int32; g: a device int32 0.
+// xq: (M, Kp) int8, zero-padded along K, 16-byte aligned; wmap: the
+// weights' tensor map; scale, bias: (N,) f32; corr: (N,) int32; g: a
+// device int32 0; ws as above.
 extern "C" int int8_gemm_codes_launch(
-    const void* xq, const void* wt, const void* scale, const void* corr,
-    const void* bias, const void* g, void* out, int M, int Kp, int N,
-    int out_bf16, void* stream) {
-  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % BK) return (int)cudaErrorInvalidValue;
+    const void* xq, const void* wmap, const void* scale, const void* corr,
+    const void* bias, const void* g, void* out, void* ws, int M, int Kp,
+    int N, int out_bf16, int ks, void* stream) {
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % KPAD) return (int)cudaErrorInvalidValue;
   GArgs a = {};
-  a.qa = a.qb = static_cast<const int8_t*>(xq);
-  a.wt = static_cast<const int8_t*>(wt);
   a.scale_a = a.scale_b = static_cast<const float*>(scale);
   a.corr = static_cast<const int*>(corr); a.bias = static_cast<const float*>(bias);
-  a.g = static_cast<const int*>(g); a.out = out;
+  a.g = static_cast<const int*>(g); a.out = out; a.ws = static_cast<int*>(ws);
   a.M = M; a.N = N; a.Kp = Kp; a.out_bf16 = out_bf16; a.gs = 0; a.G = 1;
-  return (int)launch_gemm<false>(a, static_cast<cudaStream_t>(stream));
+  a.ks = ks;
+  CUtensorMap ma, mw;
+  memcpy(&mw, wmap, sizeof mw);
+  const cudaError_t e = make_map(&ma, xq, M, Kp, BM);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_gemm<false>(ma, ma, mw, a, static_cast<cudaStream_t>(stream));
 }

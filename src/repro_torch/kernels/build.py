@@ -88,12 +88,14 @@ def build_all(names=SOURCES) -> float:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "int8_fused": {
-        # x wt s_a s_b scale_a scale_b corr bias g ps bv mu rsig sh sc gate
-        # res out codes_a codes_b | M K Kp N half x_bf16 res_bf16 out_bf16
-        # mrq gs G | stream
-        "int8_matmul_launch": [_P] * 20 + [_I] * 11 + [_P],
-        # xq wt scale corr bias g out | M Kp N out_bf16 | stream
-        "int8_gemm_codes_launch": [_P] * 7 + [_I] * 4 + [_P],
+        # map wt | N Kp
+        "int8_weight_map": [_P] * 2 + [_I] * 2,
+        # x wmap s_a s_b scale_a scale_b corr bias g ps bv mu rsig sh sc
+        # gate res out codes_a codes_b ws | M K Kp N half x_bf16 res_bf16
+        # out_bf16 mrq gs G ks | stream
+        "int8_matmul_launch": [_P] * 21 + [_I] * 12 + [_P],
+        # xq wmap scale corr bias g out ws | M Kp N out_bf16 ks | stream
+        "int8_gemm_codes_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
     "int4_packed": {
         # as int8_matmul_launch | M K Kq N gk gkp nk x_bf16 res_bf16
@@ -140,6 +142,25 @@ def lib(name: str) -> ctypes.CDLL:
         so.cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = so
     return _LIBS[name]
+
+
+def sass_counts(name: str, kernel: str,
+                ops=("IGMMA", "UTMALDG", "IMMA", "HMMA")) -> Dict[str, int]:
+    """How often each SASS instruction of ``ops`` appears in the functions
+    of the built ``csrc/<name>.cu`` whose names contain ``kernel``
+    (``cuobjdump -sass``; builds the library first). An empty dict if no
+    function matches."""
+    build_all((name,))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    for fn in text.split("Function : ")[1:]:
+        if kernel in fn.split("\n", 1)[0]:
+            words = fn.replace(".", " ").replace(";", " ").split()
+            for op in ops:
+                counts[op] = counts.get(op, 0) + words.count(op)
+    return counts
 
 
 def check(err: int, name: str, what: str) -> None:

@@ -31,9 +31,11 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.int8_fused import (
-    _BK, _DT, _need, _ptr, cached_layout, check_operands, clamp_groups,
+    _DT, _need, _ptr, cached_layout, check_operands, clamp_groups,
     group_arg, prep, row_groups,
 )
+
+_BK = 64                 # the kernel's k tile (csrc/int4_packed.cu)
 
 
 def _padded_group(group_k: int) -> int:

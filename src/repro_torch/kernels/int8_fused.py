@@ -29,6 +29,8 @@ group: the kernels clamp each group index on the device (``group_at``,
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import weakref
 
 import torch
@@ -92,7 +94,8 @@ def group_ptr(dev, g: int) -> int:
 
 
 _CACHE: dict = {}
-_BK = 64                 # the kernel's k tile: codes and weights pad K to it
+_KPAD = 16               # codes and weights pad K to 16 bytes (TMA rows)
+_BM, _BN, _BK = 128, 144, 128    # the GEMM's tile (csrc/int8_fused.cu)
 _LAYOUTS: dict = {}      # id(weight) -> (weakref to it, {tag: layout copy})
 
 
@@ -113,8 +116,8 @@ def cached_layout(w, tag, build):
 
 def _transposed(wq, Kp: int):
     """The weight codes as (N, Kp), k-contiguous and zero-padded along K —
-    the layout the kernel's mma B operand reads. Built once per weight
-    tensor on the device and kept while the weight lives (int8: the
+    the K-major layout the kernel's wgmma B operand reads. Built once per
+    weight tensor on the device and kept while the weight lives (int8: the
     weights' own size again)."""
     def build(w):
         K, N = w.shape
@@ -122,6 +125,52 @@ def _transposed(wq, Kp: int):
         wt[:, :K] = w.t()
         return wt
     return cached_layout(wq, ("int8", Kp), build)
+
+
+def weight_map(wq, Kp: int):
+    """Address of the TMA tensor map (128 host bytes) of ``_transposed(wq,
+    Kp)``, built once per weight tensor and kept with that copy."""
+    def encode(w):
+        wt = _transposed(w, Kp)
+        m = ctypes.create_string_buffer(128)
+        build.check(build.lib("int8_fused").int8_weight_map(
+            ctypes.addressof(m), wt.data_ptr(), wt.shape[0], Kp),
+            "int8_fused", "int8 weight tensor map")
+        return m
+    return ctypes.addressof(cached_layout(wq, ("int8_map", Kp), encode))
+
+
+@functools.lru_cache(maxsize=None)
+def split_k(M: int, N: int, Kp: int, sms: int) -> int:
+    """The GEMM's K splits (one CTA per SM): none where the tile grid
+    fills half of the ``sms`` SMs or more; else the fewest splits that
+    give the fewest k tiles per CTA within one wave."""
+    tiles = -(-M // _BM) * -(-N // _BN)
+    nk = -(-Kp // _BK)
+    if 2 * tiles > sms:
+        return 1
+    return min(range(1, min(nk, sms // tiles) + 1),
+               key=lambda s: (-(-nk // s), s))
+
+
+def split_args(M: int, N: int, Kp: int, planes: int, dev, stream):
+    """(ks, workspace pointer) of one GEMM launch: the split-K workspace
+    (``planes`` M x N s32 sums and one count per tile) when ks > 1, one
+    zeroed buffer per (device, stream) that every launch leaves zero."""
+    sms = _CACHE.get(("sms", str(dev)))
+    if sms is None:
+        sms = _CACHE[("sms", str(dev))] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    ks = split_k(M, N, Kp, sms)
+    if ks == 1:
+        return 1, None
+    n = planes * M * N + -(-M // _BM) * -(-N // _BN)
+    key = ("ws", str(dev), stream)
+    ws = _CACHE.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _CACHE[key] = torch.zeros((max(n, 1 << 16),), dtype=torch.int32,
+                                       device=dev)
+    return ks, ws.data_ptr()
 
 
 def _need(t, name, dtype, shape, dev):
@@ -191,21 +240,23 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     mu, rsig, sh, sc, gate, res = check_operands(
         x, (scale_a.shape[0], N), s_a, s_b, scale_a, scale_b, corr, bias, g,
         ps, stats, nm, gr, bv, out_dtype)
-    Kp = -_BK * (-K // _BK)
-    wt = _transposed(wq, Kp)
+    Kp = -_KPAD * (-K // _KPAD)
+    wmap = weight_map(wq, Kp)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     codes = torch.empty((2 if mrq else 1, M, Kp), dtype=torch.int8, device=dev)
     gptr, gs = group_arg(g, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ks, ws = split_args(M, N, Kp, 2 if mrq else 1, dev, stream)
     so = build.lib("int8_fused")
     err = so.int8_matmul_launch(
-        x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
+        x.data_ptr(), wmap, s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
         gptr, _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
         _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
-        codes[0].data_ptr(), codes[-1].data_ptr(), M, K, Kp, N,
+        codes[0].data_ptr(), codes[-1].data_ptr(), ws, M, K, Kp, N,
         2 ** (bits - 1), _DT[x.dtype],
         _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
-        gs, scale_a.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+        gs, scale_a.shape[0], ks, stream)
     name = ("int8_matmul_mrq_fq" if mrq else "int8_matmul_fq") + \
         ("_vec" if gs else "")
     build.check(err, "int8_fused", name)

@@ -7,10 +7,11 @@ codes, scale (N,) f32 (``s_x * s_w`` per channel), corr (N,) int32
 (``z_eff * colsum(wq)``), bias (N,) f32 or None; out f32 or bf16. It backs
 no serving path: the fused linears (B1, ``int8_fused``) quantize inside
 their own launch. CUDA tensors run ``csrc/int8_fused.cu``'s GEMM alone
-(``int8_gemm_codes_launch``: B1's s8 x s8 mma and its epilogue with one
-group, no quantize pass), on xq zero-padded along K to the 64-deep k tile
-and the weights' k-contiguous copy (``int8_fused.cached_layout``, made
-once per weight tensor). CPU tensors take the plain version.
+(``int8_gemm_codes_launch``: B1's wgmma GEMM and its epilogue with one
+group, no quantize pass), on xq zero-padded along K to 16 bytes and the
+weights' k-contiguous copy and its TMA tensor map
+(``int8_fused.weight_map``, made once per weight tensor). CPU tensors
+take the plain version.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch import kernels as _k
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.int8_fused import (
-    _BK, _DT, _need, _transposed, group_ptr,
+    _DT, _KPAD, _need, group_ptr, split_args, weight_map,
 )
 
 
@@ -58,18 +59,20 @@ def _launch(xq, wq, scale, corr, bias, out_dtype):
     _need(bias, "bias", (torch.float32,), (N,), dev)
     if out_dtype not in _DT:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    # the GEMM streams 64-deep k tiles as 16-byte copies: K zero-padded to
-    # the tile, rows starting on a 16-byte boundary
-    Kp = -_BK * (-K // _BK)
+    # TMA reads the codes in rows of 16-byte units from a 16-byte
+    # boundary: K zero-padded to 16
+    Kp = -_KPAD * (-K // _KPAD)
     if Kp != K:
         xq = torch.nn.functional.pad(xq, (0, Kp - K))
     elif xq.data_ptr() % 16:
         xq = xq.clone()
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ks, ws = split_args(M, N, Kp, 1, dev, stream)
     err = build.lib("int8_fused").int8_gemm_codes_launch(
-        xq.data_ptr(), _transposed(wq, Kp).data_ptr(), scale.data_ptr(),
+        xq.data_ptr(), weight_map(wq, Kp), scale.data_ptr(),
         corr.data_ptr(), bias.data_ptr(), group_ptr(dev, 0), out.data_ptr(),
-        M, Kp, N, _DT[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+        ws, M, Kp, N, _DT[out_dtype], ks, stream)
     build.check(err, "int8_fused", "int8_matmul")
     _k.LAUNCHES["int8_matmul"] += 1
     return out

@@ -1,0 +1,206 @@
+"""Device time of the fused int8 linears at the DiT-XL/2 serving shapes.
+
+    python src/repro_torch/launch/gemm_times.py [--src DIR] [--reps 30] \
+        [--vec] [--label NAME]
+
+For each int8 linear of a W8A8 DiT-XL/2 forward at 2B = 8 rows (qkv,
+proj, fc1, fc2, ada, final, x_proj, t_mlp1, t_mlp2, final_ada; bf16,
+bits 8, each with the fusion it serves with, G = 10 at group 3; with
+``--vec`` the slot pool's B6a/B6b at one group per CFG row) prints:
+
+- device ms per call: the CUDA kernels' durations summed by
+  ``torch.profiler`` over ``--reps`` calls, split into the quantize pass
+  and the GEMM;
+- wrapper ms per call: CUDA events around ``--reps`` back-to-back calls
+  (the host's checks, allocations and enqueue included: once the
+  kernels are fast, the host sets this pace);
+- bound ms: the least time the card could take for the call's work, the
+  larger of its bytes (each input read once, each output written once)
+  at 3.35 TB/s and its int8 operations at 1979 TOP/s (H100 SXM).
+
+The last line is a JSON list of the rows. ``--src`` puts DIR first on
+the import path, so one script times another tree's kernels (a parent
+commit unpacked with ``git archive``) through the same wrappers; run
+both in one process order (parent, change, change, parent) on one card
+to compare them.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import sys
+
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
+INT8_OPS = 1979e12         # dense int8 tensor-core peak, ops/s
+# (op, M, K, N, fusion, MRQ) of one W8A8 DiT-XL/2 forward at 2B = 8 rows
+SHAPES = [("qkv", 2048, 1152, 3456, "norm_mod", False),
+          ("proj", 2048, 1152, 1152, "gate_residual", False),
+          ("fc1", 2048, 1152, 4608, "norm_mod", False),
+          ("fc2", 2048, 4608, 1152, "gate_residual", True),
+          ("ada", 8, 1152, 6912, "", False),
+          ("final", 2048, 1152, 32, "norm_mod", False),
+          ("x_proj", 2048, 16, 1152, "", False),
+          ("t_mlp1", 8, 256, 1152, "", False),
+          ("t_mlp2", 8, 1152, 1152, "", False),
+          ("final_ada", 8, 1152, 2304, "", False)]
+SLOT_GROUPS = (3, 7, 0, 9, 3, 7, 0, 9)   # one TGQ group per CFG row
+
+
+def bound(nbytes: float, int8_ops: float):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, int8_ops / INT8_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8):
+    """(run, bytes, int8 operations) of one fused linear call on the
+    card: bf16 x, random weight codes, G = 10 scale stacks."""
+    import torch
+    from repro_torch.kernels import int8_fused as F8
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    half, B, G, g = 2 ** (bits - 1), 8, 10, 3
+    x = torch.randn(M, K, device=dev, generator=gen)
+    if mrq:                                # post-GELU-like input
+        x = torch.nn.functional.gelu(x * 2, approximate="tanh")
+    x = x.to(dt)
+    wq = torch.randint(-(half - 1), half, (K, N), device=dev, generator=gen,
+                       dtype=torch.int8)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    scale_w = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
+    bias = torch.randn(N, device=dev, generator=gen) * 0.1
+    bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(
+        -(-M // B))[:M].contiguous()
+    kw = {"bits": bits, "out_dtype": dt}
+    nbytes = (M * K * 2 + K * N + (G if vec else 1) * N * 4 * 2 + N * 4
+              + M * N * 2 + (M * 4 if vec else 0))
+    if fusion == "norm_mod":
+        kw.update(nm=(torch.randn(B, K, device=dev, generator=gen) * 0.1,
+                      torch.randn(B, K, device=dev, generator=gen) * 0.1),
+                  bv=bv)
+        nbytes += M * 8 + 2 * B * K * 4 + M * 4
+    if fusion == "gate_residual":
+        kw.update(gr=(torch.randn(B, N, device=dev, generator=gen),
+                      torch.randn(M, N, device=dev, generator=gen).to(dt)),
+                  bv=bv)
+        nbytes += B * N * 4 + M * N * 2 + M * 4
+    if mrq:
+        s_neg, s_pos = rate * (0.2 / half), rate * (6.0 / half)
+        args = (x, wq, s_neg, s_pos, s_neg * scale_w, s_pos * scale_w, bias)
+        fn = F8.int8_matmul_mrq_fq_vec if vec else F8.int8_matmul_mrq_fq
+    else:
+        sx = rate * (8.0 / (2 * half - 1))
+        zx = torch.round(4.0 / sx)
+        corr = (torch.round(zx).to(torch.int32) - half) \
+            * wq.to(torch.int32).sum(0, dtype=torch.int32)[None]
+        args = (x, wq, sx, zx, sx * scale_w, corr, bias)
+        fn = F8.int8_matmul_fq_vec if vec else F8.int8_matmul_fq
+    if vec:
+        grp = torch.tensor(SLOT_GROUPS, dtype=torch.int32, device=dev)
+        gv = grp.repeat_interleave(-(-M // B))[:M].contiguous()
+        run = lambda: fn(*args, gv, **kw)
+    else:
+        run = lambda: fn(*args, g, **kw)
+    return run, nbytes, 2 * M * K * N * (2 if mrq else 1)
+
+
+def kernel_name(name: str) -> str:
+    """``void (anonymous namespace)::gemm_kernel<false>(...)`` ->
+    ``gemm_kernel<false>``."""
+    m = re.search(r"(\w+_kernel)(<[^(]*?>)?\(", name)
+    return m.group(1) + (m.group(2) or "") if m else name[:60]
+
+
+def device_ms(run, reps: int):
+    """{kernel: device ms per call} of ``reps`` calls of ``run``, from the
+    profiler's CUDA kernel events (after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    per = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[kernel_name(e.name)] += e.time_range.elapsed_us()
+    return {k: v / reps / 1e3 for k, v in per.items()}
+
+
+def wrapper_ms(run, reps: int) -> float:
+    import torch
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_shape(op, M, K, N, fusion, mrq, vec, gen, reps):
+    """One row: the call's device ms (total, quantize, GEMM), wrapper ms
+    and bound."""
+    run, nbytes, ops = make_call(op, M, K, N, fusion, mrq, vec, gen)
+    dev = device_ms(run, reps)
+    quant = sum(v for k, v in dev.items() if k.startswith("quantize_kernel"))
+    row = {"op": op, "M": M, "K": K, "N": N, "fusion": fusion or "plain",
+           "kernel": ("int8_matmul_mrq_fq" if mrq else "int8_matmul_fq")
+           + ("_vec" if vec else ""),
+           "device_ms": sum(dev.values()), "quantize_ms": quant,
+           "gemm_ms": sum(v for k, v in dev.items()
+                          if k.startswith("gemm_kernel")),
+           "other_ms": sum(dev.values()) - quant - sum(
+               v for k, v in dev.items() if k.startswith("gemm_kernel")),
+           "wrapper_ms": wrapper_ms(run, reps)}
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    return row
+
+
+def time_shapes(reps: int = 30, vec: bool = False, shapes=SHAPES,
+                log=print):
+    """Rows for every serving shape (``--vec``: also B6a/B6b at qkv and
+    fc2)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [time_shape(*s, False, gen, reps) for s in shapes]
+    if vec:
+        rows += [time_shape(*s, True, gen, reps) for s in shapes
+                 if s[0] in ("qkv", "fc2")]
+    for r in rows:
+        log(f"  {r['kernel']:<22} {r['op']:<9} {r['M']:>4}x{r['K']:<4}x"
+            f"{r['N']:<4} device {r['device_ms']:.4f} ms (quantize "
+            f"{r['quantize_ms']:.4f}, gemm {r['gemm_ms']:.4f}, other "
+            f"{r['other_ms']:.4f}); wrapper {r['wrapper_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=None,
+                    help="import repro_torch from this directory")
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--vec", action="store_true")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    src = args.src or os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "..")
+    sys.path.insert(0, os.path.abspath(src))
+    import torch
+    import repro_torch
+    if not torch.cuda.is_available():
+        raise SystemExit("gemm_times: needs a CUDA card")
+    print(f"{args.label}: repro_torch from {os.path.dirname(repro_torch.__file__)}"
+          f" on {torch.cuda.get_device_name(0)}", flush=True)
+    rows = time_shapes(args.reps, args.vec)
+    print(json.dumps({"label": args.label, "rows": rows}))
+
+
+if __name__ == "__main__":
+    main()

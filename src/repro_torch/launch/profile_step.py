@@ -20,6 +20,11 @@ of the continuous-batching engine instead (``AsyncServeEngine``, 4
 slots, after one warm-up chunk): the same forward through the
 per-row-group kernels. ``--ops-json PATH`` writes every host op and
 kernel as ``{"host"|"device": {name: [calls/step, ms/step]}}``.
+
+The int8 GEMM (``gemm_kernel``, one kernel for every int8 linear) is
+split by op: the traced run records each int8 linear launch's (M, K, N)
+in order, and each GEMM kernel event, in start order, takes the op of
+its launch (qkv, proj, fc1, fc2, ada; the others under "rest").
 """
 from __future__ import annotations
 
@@ -27,6 +32,29 @@ import argparse
 import collections
 import json
 import time
+
+
+def op_of(M: int, K: int, N: int, cfg) -> str:
+    """The DiT op of an int8 linear launch of shape (M, K, N)."""
+    d, f, tokens = cfg.d_model, cfg.d_ff, M % cfg.n_tokens == 0
+    return {(True, d, 3 * d): "qkv", (True, d, d): "proj",
+            (True, d, f): "fc1", (True, f, d): "fc2",
+            (False, d, 6 * d): "ada"}.get((tokens, K, N), "rest")
+
+
+def gemm_by_op(events, shapes, cfg):
+    """{op: [calls, us]} of the GEMM kernel events (start order) paired
+    with the recorded launch shapes, or None if their counts differ."""
+    events = sorted(events, key=lambda e: e[0])
+    if len(events) != len(shapes):
+        return None
+    out = collections.OrderedDict(
+        (k, [0, 0.0]) for k in ("qkv", "proj", "fc1", "fc2", "ada", "rest"))
+    for (_, us), shape in zip(events, shapes):
+        row = out[op_of(*shape, cfg)]
+        row[0] += 1
+        row[1] += us
+    return out
 
 
 def main(argv=None) -> None:
@@ -66,20 +94,33 @@ def main(argv=None) -> None:
         run = lambda: engine.run_microbatch(mb)
     run()                                       # warm-up: builds, caches
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    from repro_torch.kernels import int8_fused
+    shapes, launch = [], int8_fused._launch
+
+    def recorded(mrq, x, wq, *a, **k):          # each int8 GEMM's shape
+        shapes.append((x.shape[0], x.shape[1], wq.shape[1]))
+        return launch(mrq, x, wq, *a, **k)
+    int8_fused._launch = recorded
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        int8_fused._launch = launch
     if args.async_mode:
         fail_on_degradation(engine)
     by_name = collections.Counter()
     calls = collections.Counter()
+    gemm = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
             calls[e.name] += 1
+            if "gemm_kernel<" in e.name:
+                gemm.append((e.time_range.start, e.time_range.elapsed_us()))
     dev_us = sum(by_name.values())
     n = args.steps
     smi = torch.cuda.get_device_name(0)
@@ -94,6 +135,16 @@ def main(argv=None) -> None:
     for name, us in by_name.most_common(args.top):
         print(f"  {us / n / 1e3:9.3f} ms/step {100 * us / dev_us:5.1f}% "
               f"{calls[name] // n:5d} calls/step  {name[:90]}")
+    if shapes:
+        split = gemm_by_op(gemm, shapes, cfg)
+        if split is None:
+            print(f"  gemm_kernel by op: {len(gemm)} kernel events for "
+                  f"{len(shapes)} int8 launches, not split")
+        else:
+            print("  gemm_kernel by op: " + "; ".join(
+                f"{op} {us / n / 1e3:.3f} ms/step ({c // n} calls, "
+                f"{us / c:.2f} us each)" for op, (c, us) in split.items()
+                if c))
     host, hcalls = collections.Counter(), collections.Counter()
     for ka in prof.key_averages():
         if ka.device_type == torch.autograd.DeviceType.CPU:

@@ -30,11 +30,14 @@ def quantize(params, model_cfg, dif_cfg, recipe: QuantRecipe,
              ) -> QuantArtifact:
     """Calibrate + pack in one call; returns a QuantArtifact whose
     meta records the model/diffusion configs, the params' content hash,
-    the TGQ group boundaries and the recipe hash, as the reference's."""
-    if recipe.method == "ho":
-        raise NotImplementedError(
-            "method='ho' (the Hessian-guided search) is not ported yet: "
-            "ROADMAP queue 1, item 10 (calibration and artifact writing)")
+    the TGQ group boundaries and the recipe hash, as the reference's.
+
+    ``calib_data`` (``[(batch_dict, group)]``) is validated for every
+    method, before the method is dispatched, as the reference does: a
+    group tag outside [0, G) raises ``ValueError``. The 'range' method
+    then ignores it and draws its own capture set (its protocol is part
+    of the method); 'ho' is not ported yet and raises
+    ``NotImplementedError``."""
     if recipe.tgq_groups is not None \
             and recipe.tgq_groups != dif_cfg.tgq_groups:
         if calib_data is not None:
@@ -43,6 +46,17 @@ def quantize(params, model_cfg, dif_cfg, recipe: QuantRecipe,
                 f"dif_cfg.tgq_groups={dif_cfg.tgq_groups} but calib_data "
                 "was supplied — build it under the intended group count")
         dif_cfg = dataclasses.replace(dif_cfg, tgq_groups=recipe.tgq_groups)
+    if calib_data is not None:
+        bad = sorted({int(tg) for _, tg in calib_data
+                      if not 0 <= int(tg) < dif_cfg.tgq_groups})
+        if bad:
+            raise ValueError(
+                f"calib_data group tags {bad} out of range for "
+                f"tgq_groups={dif_cfg.tgq_groups}")
+    if recipe.method == "ho":
+        raise NotImplementedError(
+            "method='ho' (the Hessian-guided search) is not ported yet: "
+            "ROADMAP queue 1, item 3 (the HO calibration)")
     defaults = QuantRecipe()
     unsupported = [f for f in _HO_ONLY
                    if getattr(recipe, f) != getattr(defaults, f)]
@@ -55,9 +69,8 @@ def quantize(params, model_cfg, dif_cfg, recipe: QuantRecipe,
     from repro_torch.kernels.ops import convert_for_kernels
     from repro_torch.serving.quickcal import range_calibrate
     qparams, weights = range_calibrate(
-        params, model_cfg, dif_cfg, sched, calib=calib_data,
-        seed=recipe.seed, wbits=recipe.wbits, abits=recipe.abits,
-        n_per_group=recipe.n_per_group, batch=recipe.calib_batch,
+        params, model_cfg, dif_cfg, sched, seed=recipe.seed,
+        wbits=recipe.wbits, abits=recipe.abits, n_per_group=recipe.n_per_group, batch=recipe.calib_batch,
         max_rows=recipe.max_rows_per_batch)
     qparams = convert_for_kernels(qparams, weights)
     dev = params["x_proj"]["w"].device

@@ -36,6 +36,13 @@ out, bits 8 and 6, each bit-exact against its plain version
 B8 (causal, random with fully masked rows, a padding mask on ragged Skv,
 GQA) bit-exact against theirs (``B3_mask_vs_plain``), and an all-True
 mask equal to the unmasked call.
+
+The int8 GEMM (``csrc/int8_fused.cu::gemm_kernel``, TMA + ``wgmma``,
+behind B1, B2, B6a, B6b and B11): bit for bit against the plain versions
+at ragged M, N and K (K below one k tile), at M = 8 and on the split-K
+path, f32 and bf16 out, with and without bias and gate + residual;
+B6a/B6b with G = 10 and 20 groups and out-of-range entries clamped; one
+launch per call; and its SASS holds wgmma and TMA loads and no mma.sync.
 """
 from __future__ import annotations
 
@@ -578,7 +585,10 @@ def test_async_composed_engine_matches_sync_on_the_card(dev, quantize):
 
 # -- the public kernel API: B11, B12, B13 and flash's boolean mask ----------
 MM_SHAPES = [(8, 16, 8), (64, 96, 80), (128, 256, 128), (7, 13, 5),
-             (130, 257, 129), (256, 512, 384)]
+             (130, 257, 129), (256, 512, 384),
+             # the GEMM's split-K path, and one full wave at N = 1152
+             (7, 16, 32), (8, 1152, 1152), (130, 4608, 131),
+             (2048, 1152, 1152)]
 
 
 @pytest.mark.parametrize("M,K,N", MM_SHAPES)
@@ -707,3 +717,94 @@ def test_masked_flash_kernels_match_plain(dev, kind, bits, packed_kv, S, Skv,
         assert (out - ref).abs().max() <= TOLERANCES["B3_mask_vs_plain"][0]
         ones = torch.ones(B, S, Skv, dtype=torch.bool, device=dev)
         assert torch.equal(run(ones), run(None)), name
+
+
+# -- the wgmma/TMA int8 GEMM (gemm_kernel: B1, B2, B6a, B6b, B11) -----------
+GEMM_SHAPES = ([(M, K, N) for M in (7, 77, 130)
+                for K, N in ((16, 32), (129, 131), (4608, 131))]
+               + [(8, 1152, 1152), (8, 1152, 6912), (2048, 1152, 1152)])
+
+
+def _gemm_case(dev, M, K, N, mrq, G, seed):
+    """(wrapper, vec wrapper, positional args without bias and group,
+    bias, gate + residual, row -> batch map) of a fused int8 linear."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = 2
+    x = torch.randn(M, K, device=dev, generator=g)
+    wq = torch.randint(-127, 128, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    s = 0.03 + 0.02 * torch.rand(G, 1, device=dev, generator=g)
+    scale = torch.rand(G, N, device=dev, generator=g) * 1e-3
+    bias = torch.randn(N, device=dev, generator=g)
+    bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(
+        -(-M // B))[:M].contiguous()
+    gr = (torch.randn(B, N, device=dev, generator=g),
+          torch.randn(M, N, device=dev, generator=g))
+    if mrq:
+        x = torch.nn.functional.gelu(x * 2, approximate="tanh")
+        return (F8.int8_matmul_mrq_fq, F8.int8_matmul_mrq_fq_vec,
+                (x, wq, s * 0.1, s * 2, scale, scale * 0.5), bias, gr, bv)
+    corr = torch.randint(-999, 999, (G, N), device=dev, generator=g,
+                         dtype=torch.int32)
+    return (F8.int8_matmul_fq, F8.int8_matmul_fq_vec,
+            (x, wq, s, torch.round(4.0 / s), scale, corr), bias, gr, bv)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mrq", [False, True])
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+def test_int8_gemm_matches_plain(dev, M, K, N, mrq, dt):
+    """B1 and B2 bit for bit against their plain versions, with and
+    without bias and gate + residual, one launch per call: ragged M, N
+    and K (K = 16 is below one 128-deep k tile), M = 8 (a weight stream)
+    and the split-K path (every M = 8 shape, N = 1152 included, and
+    K = 4608 at N = 131)."""
+    fn, _, args, bias, gr, bv = _gemm_case(dev, M, K, N, mrq, 2, M + K + N)
+    args = (args[0].to(dt),) + args[1:]
+    gr = (gr[0], gr[1].to(dt))
+    Kp = -16 * (-K // 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if M == 8 or K == 4608:
+        assert F8.split_k(M, N, Kp, sms) > 1
+    name = fn.__name__
+    for b in (None, bias):
+        for fused in ({}, {"gr": gr, "bv": bv}):
+            run = lambda: fn(*args, b, 1, out_dtype=dt, **fused)
+            before = kernels.LAUNCHES[name]
+            out = run()
+            assert kernels.LAUNCHES[name] == before + 1
+            assert out.dtype == dt and out.shape == (M, N)
+            assert torch.equal(out, _plain(run)), (b is None, bool(fused))
+
+
+@pytest.mark.parametrize("G", [10, 20])
+@pytest.mark.parametrize("mrq", [False, True])
+@pytest.mark.parametrize("M,K,N", [(130, 129, 131), (8, 1152, 1152),
+                                   (2048, 1152, 1152)])
+def test_int8_gemm_vec_clamps_and_matches_plain(dev, M, K, N, mrq, G):
+    """B6a and B6b with G groups (10: every group's column rows staged in
+    shared memory; 20: groups past the 16th read from device memory) and
+    group entries outside [0, G): equal to the clamped vector's output
+    and to the plain version's, one launch per call."""
+    _, vec, args, bias, gr, bv = _gemm_case(dev, M, K, N, mrq, G, M + G)
+    args = (args[0].to(torch.bfloat16),) + args[1:]
+    gr = (gr[0], gr[1].to(torch.bfloat16))
+    gv = torch.randint(-3, G + 3, (M,), dtype=torch.int32, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(G))
+    run = lambda v: vec(*args, bias, v, gr=gr, bv=bv,
+                        out_dtype=torch.bfloat16)
+    name = vec.__name__
+    before = kernels.LAUNCHES[name]
+    out = run(gv)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(out, run(gv.clamp(0, G - 1)))
+    assert torch.equal(out, _plain(lambda: run(gv)))
+
+
+def test_int8_gemm_is_wgmma_and_tma(dev):
+    """The built GEMM multiplies with wgmma (SASS IGMMA) on tiles that TMA
+    loads (UTMALDG), and holds no mma.sync (IMMA, HMMA)."""
+    from repro_torch.kernels import build
+    counts = build.sass_counts("int8_fused", "gemm_kernel")
+    assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
+    assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts

@@ -163,6 +163,55 @@ def test_wrapper_counts_only_kernel_launches():
                           _t(p["wq"][:3]), *(None,) * 4)
 
 
+# (op, M, K, N, splits K) at the DiT-XL/2 serving shapes, 2B = 8 rows
+SERVING_GEMMS = [("qkv", 2048, 1152, 3456, False),
+                 ("proj", 2048, 1152, 1152, False),
+                 ("fc1", 2048, 1152, 4608, False),
+                 ("fc2", 2048, 4608, 1152, False),
+                 ("x_proj", 2048, 16, 1152, False),
+                 ("ada", 8, 1152, 6912, True),
+                 ("t_mlp1", 8, 256, 1152, True),
+                 ("t_mlp2", 8, 1152, 1152, True),
+                 ("final_ada", 8, 1152, 2304, True),
+                 ("final", 2048, 1152, 32, True)]
+
+
+@pytest.mark.parametrize("op,M,K,N,splits", SERVING_GEMMS)
+def test_gemm_split_k_fills_the_card(op, M, K, N, splits):
+    """On an H100's 132 SMs the int8 GEMM (128 x 144 tiles, 128-deep k
+    tiles) splits K only where its tile grid leaves SMs idle, into no
+    more splits than k tiles and no more CTAs than SMs."""
+    Kp = -F8._KPAD * (-K // F8._KPAD)
+    ks = F8.split_k(M, N, Kp, 132)
+    tiles = -(-M // F8._BM) * -(-N // F8._BN)
+    assert (ks > 1) == splits, (op, ks)
+    assert 1 <= ks <= -(-Kp // F8._BK)
+    assert tiles * ks <= 132 or ks == 1
+
+
+def test_profile_step_splits_gemm_by_op():
+    """``profile_step`` pairs the GEMM kernel events (start order) with
+    the recorded int8 launch shapes of a DiT-XL/2 forward (2B = 8 rows)
+    and sums each op's device time; unmatched counts give no split."""
+    from repro_torch.configs.dit_xl_2 import full
+    from repro_torch.launch.profile_step import gemm_by_op
+    cfg = full()
+    ops = {op: (M, K, N) for op, M, K, N, _ in SERVING_GEMMS}
+    order = ["x_proj", "t_mlp1", "t_mlp2"] + 2 * ["ada", "qkv", "proj",
+                                                   "fc1", "fc2"] \
+        + ["final_ada", "final"]
+    shapes = [ops[o] for o in order]
+    events = [(float(i), 1.0 + i) for i in range(len(order))]  # (start, us)
+    split = gemm_by_op(events[::-1], shapes, cfg)    # in any order
+    assert {k: v[0] for k, v in split.items()} == {
+        "qkv": 2, "proj": 2, "fc1": 2, "fc2": 2, "ada": 2, "rest": 5}
+    want = dict.fromkeys(split, 0.0)
+    for i, o in enumerate(order):
+        want[o if o in want else "rest"] += 1.0 + i
+    assert {k: v[1] for k, v in split.items()} == want
+    assert gemm_by_op(events[1:], shapes, cfg) is None
+
+
 FLASH_CASES = [(bits, G, S, D) for bits in (8, 6) for G in (1, 3)
                for S, D in ((100, 72), (200, 16))]
 

@@ -272,3 +272,44 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny):
                      torch.ones(2), null_label=8, chunk=1)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# quantize(): calibration batches' group tags
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("method", ["range", "ho"])
+def test_calib_data_group_tag_validation(tiny, method):
+    """A ``calib_data`` group tag outside [0, G) raises ``ValueError`` in
+    both packages' ``quantize``, for either method, before the method is
+    dispatched (the port's 'ho' is not ported and would otherwise raise
+    ``NotImplementedError``); overriding the group count with
+    caller-built batches raises too (``tests/test_quant_api.py``'s
+    test of the same name, on both packages)."""
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+    jcfg, jp, tcfg, tp = tiny
+    fake = [({"xt": None}, 0), ({"xt": None}, 7)]      # tag 7 >= G = 4
+    calls = ((jquantize, jp, jcfg, JDiffusionCfg(T=1000, tgq_groups=4),
+              JQuantRecipe),
+             (quantize, tp, tcfg, DiffusionCfg(T=1000, tgq_groups=4),
+              QuantRecipe))
+    for fn, p, cfg, dif, recipe in calls:
+        with pytest.raises(ValueError, match=r"\[7\] out of range"):
+            fn(p, cfg, dif, recipe(method=method), calib_data=fake)
+        with pytest.raises(ValueError, match="overrides"):
+            fn(p, cfg, dif, recipe(method=method, tgq_groups=2),
+               calib_data=[({"xt": None}, 0)])
+
+
+def test_range_quantize_ignores_calib_data(tiny):
+    """The 'range' method draws its own capture set, as the reference's
+    does: batches with valid tags change nothing in the artifact."""
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+    _, _, tcfg, tp = tiny
+    dif = DiffusionCfg(T=1000, tgq_groups=4)
+    recipe = QuantRecipe(bits="w8a8", n_per_group=1, calib_batch=1)
+    own = quantize(tp, tcfg, dif, recipe)
+    given = quantize(tp, tcfg, dif, recipe,
+                     calib_data=[({"xt": None}, 0), ({"xt": None}, 3)])
+    _assert_tree(_leaves(own.qparams), _leaves(given.qparams))
