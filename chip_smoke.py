@@ -8,19 +8,24 @@ kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 Phases (each fatal on failure; exit code 0 only when all pass):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
-             per source, in parallel); print the build seconds, the
-             card's name and power limit, and the int8 GEMM's SASS
-             (fatal unless it holds wgmma and TMA loads and no mma.sync).
+             per source, in parallel); print the build seconds, ptxas's
+             register, spill and wgmma-serialisation lines, the card's
+             name and power limit, and the SASS of the int8 GEMM and of
+             the packed-int4 GEMM (each fatal unless it holds wgmma and
+             TMA loads and no mma.sync).
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
              fusions, G = 10 at a nonzero group: B1/B2 and B6a/B6b
              (bits 8 and 6, every int8 serving shape: qkv, proj, fc1,
-             fc2, ada, final, x_proj, t_mlp2, final_ada), B4/B5 (packed int4, K groups of 256 and x_proj's 16), B3
+             fc2, ada, final, x_proj, t_mlp2, final_ada), B4/B5 (packed
+             int4, every W4A4 serving shape: the ten above with t_mlp1,
+             K groups of 256 and x_proj's 16), B3
              (bits 8, 6 and 4) and B3b (packed kv, also held bit for bit
              against unpacked B3); the per-row-group kernels B6a/B6b
-             (bits 8), B7a/B7b and B8 (bits 8, and 4 with packed kv) in
-             bf16 with a mixed group vector (one group per slot), each
+             (bits 8), B7a/B7b (bf16 and f32) and B8 (bits 8, and 4 with
+             packed kv) in bf16 with a mixed group vector (one group per
+             slot), each
              also held bit for bit against its scalar kernel, with a
              constant vector and group by group; the composed
              attention chain B9a -> B10a -> B9b and its per-row-group
@@ -41,11 +46,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              times (CUDA events) beside the least time the card could
              take (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s,
              fp32 at 67 TFLOP/s), and the masked flash time beside the
-             unmasked one. Then the int8 GEMM's calls at every serving
-             shape in device time (``launch/gemm_times.py``: the
-             profiler's kernel durations, quantize pass and GEMM apart)
-             beside their wrapper times and bounds; the kernels line's
-             ms for B1, B2, B6a, B6b and B11 is that device time.
+             unmasked one. Then the int8 and the packed-int4 GEMMs' calls
+             at every serving shape in device time
+             (``launch/gemm_times.py [--int4]``: the profiler's kernel
+             durations, quantize pass and GEMM apart) beside their
+             wrapper times and bounds; the kernels line's ms for B1, B2,
+             B4, B5, B6a, B6b, B7a, B7b and B11 is that device time.
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -150,10 +156,17 @@ LINEAR_CASES = [  # (op, M, K, N, fusion, kernel): every int8 serving shape
     ("t_mlp2", 8, 1152, 1152, "", "int8_matmul_fq"),
     ("final_ada", 8, 1152, 2304, "", "int8_matmul_fq"),
 ]
-INT4_CASES = [  # run with the fusion and without it
-    ("x_proj", 2048, 16, 1152, "", "int4_matmul_fq"),
+INT4_CASES = [  # every W4A4 serving shape, with the fusion and without it
     ("qkv", 2048, 1152, 3456, "norm_mod", "int4_matmul_fq"),
+    ("proj", 2048, 1152, 1152, "gate_residual", "int4_matmul_fq"),
+    ("fc1", 2048, 1152, 4608, "norm_mod", "int4_matmul_fq"),
     ("fc2", 2048, 4608, 1152, "gate_residual", "int4_matmul_mrq_fq"),
+    ("ada", 8, 1152, 6912, "", "int4_matmul_fq"),
+    ("final", 2048, 1152, 32, "norm_mod", "int4_matmul_fq"),
+    ("x_proj", 2048, 16, 1152, "", "int4_matmul_fq"),
+    ("t_mlp1", 8, 256, 1152, "", "int4_matmul_fq"),
+    ("t_mlp2", 8, 1152, 1152, "", "int4_matmul_fq"),
+    ("final_ada", 8, 1152, 2304, "", "int4_matmul_fq"),
 ]
 TIMED = {"int8_matmul_fq": "qkv", "int8_matmul_mrq_fq": "fc2",
          "int4_matmul_fq": "qkv", "int4_matmul_mrq_fq": "fc2"}
@@ -765,11 +778,14 @@ def phase_kernels():
         rows["flash_attn_mrq"].append({"max_abs_err": b3_4bit["max_abs_err"]})
         rows.setdefault("flash_attn_mrq_packed_kv", []).append(
             flash_case(4, dt, gen, bf16, packed_kv=True))
-    # the per-row-group kernels of the continuous-batching path, bf16
+    # the per-row-group kernels of the continuous-batching path, bf16 (the
+    # int4 ones in f32 too)
     for op, M, K, N, fusion, kern, bits in VEC_CASES:
-        rows.setdefault(kern + "_vec", []).append(linear_case(
-            op, M, K, N, fusion, kern, bits, torch.bfloat16, gen, True,
-            vec=True))
+        for dt in ((torch.bfloat16, torch.float32) if bits == 4
+                   else (torch.bfloat16,)):
+            rows.setdefault(kern + "_vec", []).append(linear_case(
+                op, M, K, N, fusion, kern, bits, dt, gen,
+                dt == torch.bfloat16, vec=True))
     rows["flash_attn_mrq_vec"] = [flash_case(8, torch.bfloat16, gen, True,
                                              vec=True)]
     rows["flash_attn_mrq_vec_packed_kv"] = [flash_case(
@@ -818,20 +834,26 @@ def phase_kernels():
     return merged
 
 
-GEMM_TIMED = {"int8_matmul_fq": "qkv", "int8_matmul_mrq_fq": "fc2",
-              "int8_matmul_fq_vec": "qkv", "int8_matmul_mrq_fq_vec": "fc2"}
+GEMM_TIMED = {f"{w}_matmul{m}_fq{v}": "fc2" if m else "qkv"
+              for w in ("int8", "int4") for m in ("", "_mrq")
+              for v in ("", "_vec")}
 
 
 def phase_gemm_device(rows):
-    """The int8 GEMM's calls (B1; B2 at fc2; B6a/B6b at qkv and fc2) at
-    every serving shape, bf16, bits 8, in device time: the profiler's
-    kernel durations over 30 calls, quantize pass and GEMM apart, beside
-    the wrapper time (CUDA events, host included) and the call's bound.
-    The kernels line's ms for B1, B2, B6a and B6b is the device time at
-    qkv (fc2 for B2, B6b)."""
+    """The GEMMs' calls at every serving shape, bf16, in device time: the
+    int8 family at bits 8 (B1; B2 at fc2; B6a/B6b at qkv and fc2) and the
+    packed-int4 family (B4; B5 at fc2; B7a/B7b at qkv and fc2): the
+    profiler's kernel durations over 30 calls, quantize pass and GEMM
+    apart, beside the wrapper time (CUDA events, host included) and the
+    call's bound. The kernels line's ms for these eight kernels is the
+    device time at qkv (fc2 for the MRQ ones)."""
     from repro_torch.launch import gemm_times
-    log("int8 GEMM per serving shape (bf16, bits 8), device time per call:")
-    table = gemm_times.time_shapes(reps=30, vec=True, log=log)
+    table = []
+    for int4, what in ((False, "int8 GEMM (bf16, bits 8)"),
+                       (True, "int4 GEMM (bf16, W4A4)")):
+        log(f"{what} per serving shape, device time per call:")
+        table += gemm_times.time_shapes(reps=30, vec=True, log=log,
+                                        int4=int4)
     for r in table:
         if GEMM_TIMED.get(r["kernel"]) == r["op"]:
             row = rows[r["kernel"]]
@@ -1323,19 +1345,24 @@ def main() -> int:
     log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
     for name, text in kbuild.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"card: {smi.stdout.strip()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    sass = kbuild.sass_counts("int8_fused", "gemm_kernel")
-    log(f"int8 GEMM (gemm_kernel) SASS: {sass['IGMMA']} IGMMA (wgmma), "
-        f"{sass['UTMALDG']} UTMALDG (TMA loads), {sass['IMMA']} IMMA and "
-        f"{sass['HMMA']} HMMA (mma.sync)")
-    if not (sass["IGMMA"] and sass["UTMALDG"]) or sass["IMMA"] or sass["HMMA"]:
-        raise AssertionError("the int8 GEMM is not built on wgmma and TMA")
+    for lib, kern in (("int8_fused", "gemm_kernel"),
+                      ("int4_packed", "gemm4_kernel")):
+        sass = kbuild.sass_counts(lib, kern, ops=(
+            "IGMMA", "UTMALDG", "UBLKCP", "IMMA", "HMMA"))
+        log(f"{lib} GEMM ({kern}) SASS: {sass['IGMMA']} IGMMA (wgmma), "
+            f"{sass['UTMALDG']} UTMALDG (TMA tensor loads), {sass['UBLKCP']}"
+            f" UBLKCP (TMA bulk copies), {sass['IMMA']} IMMA and "
+            f"{sass['HMMA']} HMMA (mma.sync)")
+        if (not (sass["IGMMA"] and sass["UTMALDG"]) or sass["IMMA"]
+                or sass["HMMA"]):
+            raise AssertionError(f"{kern} is not built on wgmma and TMA")
 
     rows = phase_kernels()
     phase_gemm_device(rows)

@@ -85,17 +85,13 @@
 // an int32 pointer and clamped into [0, G) (group_at). A wait on an
 // mbarrier that never completes traps, so a pipeline fault fails the
 // launch instead of hanging the card.
-#include "common.cuh"
-
-#include <cuda.h>      // CUtensorMap and its enums; cuTensorMapEncodeTiled
-#include <limits.h>    // is fetched at run time (no libcuda at link time)
-#include <string.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int BM = 128;         // rows per CTA: two consumer warpgroups of 64
 constexpr int BN = 144;         // columns per CTA (wgmma m64n144k32)
-constexpr int BK = 128;         // k tile: 128 bytes, one swizzle row
+constexpr int BK = TMA_BK;      // k tile: 128 bytes, one swizzle row
 constexpr int KPAD = 16;        // codes and weights pad K to 16 bytes (TMA)
 constexpr int THREADS = 384;    // warpgroup 0 loads, 1 and 2 multiply
 constexpr int GST = 10;         // groups whose column rows are staged
@@ -131,72 +127,6 @@ struct GArgs {          // gemm_kernel
   int vec_ok;           // N % 8 == 0, out/gate/res 16-byte aligned
   int pairs_ok;         // N even, the scale (and corr) stacks 8-byte aligned
 };
-
-__device__ __forceinline__ uint32_t su32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-// Wait until the barrier's phase of this parity has completed; trap after
-// ~2^28 polls (seconds), far beyond any legitimate wait.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (unsigned n = 0;; ++n) {
-    uint32_t ok;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-    if (ok) return;
-    if (n == (1u << 28)) __trap();
-  }
-}
-// One 2-D TMA box (k, row) of a tensor map into shared memory, counted
-// on the barrier's transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int k, int row, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row),
-         "r"(bar)
-      : "memory");
-}
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows in the
-// 128-byte swizzle: 8-row core groups 1024 bytes apart (SBO), LBO unused.
-// Adding 2 (32 bytes) steps one k32 slice along the swizzled row.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32)
-         | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads across the async MMAs.
-__device__ __forceinline__ void fence_regs(int (&d)[72]) {
-#pragma unroll
-  for (int i = 0; i < 72; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
 
 // d[64 x 144] += A[64 x 32] . B[144 x 32]^T, s8 x s8 -> s32, both from
 // shared memory. d[4j + e]: row 16 * warp + lane / 4 + 8 * (e >> 1),
@@ -238,74 +168,6 @@ __device__ __forceinline__ Unit unit_at(int u, int tn, int ks, int nk) {
   const int t = u / ks, z = u % ks;     // a tile's splits are neighbours
   return {t, (t / tn) * BM, (t % tn) * BN, (int)((long)z * nk / ks),
           (int)((long)(z + 1) * nk / ks)};
-}
-
-__device__ __forceinline__ void unpack8(const float4& a, const float4& b,
-                                        float (&v)[8]) {
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-// 8 values from 16-byte aligned memory (32 bytes of f32, 16 of bf16)
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  unpack8(__ldg(reinterpret_cast<const float4*>(p)),
-          __ldg(reinterpret_cast<const float4*>(p) + 1), v);
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x; v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-// Epilogue, second pass: y of n <= 8 columns of one row (staged, 16-byte
-// aligned), (+ gate * y + residual), one write: 16 bytes a thread where
-// the row allows, else one column at a time.
-__device__ __forceinline__ void store_chunk(const GArgs& a, int row, int col,
-                                            int n, const float* ys) {
-  float y[8];
-  unpack8(*reinterpret_cast<const float4*>(ys),
-          *reinterpret_cast<const float4*>(ys + 4), y);
-  const long o = (long)row * a.N + col;
-  if (n == 8 && a.vec_ok) {
-    if (a.gate) {
-      float gt[8], rs[8];
-      load8(a.gate + (long)a.bv[row] * a.N + col, gt);
-      if (a.res_bf16) load8(static_cast<const __nv_bfloat16*>(a.res) + o, rs);
-      else load8(static_cast<const float*>(a.res) + o, rs);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) y[i] = __fadd_rn(rs[i], __fmul_rn(gt[i], y[i]));
-    }
-    if (a.out_bf16) store8(static_cast<__nv_bfloat16*>(a.out) + o, y);
-    else store8(static_cast<float*>(a.out) + o, y);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (i >= n) break;
-    float v = y[i];
-    if (a.gate) {
-      const float r = a.res_bf16
-          ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.res)[o + i])
-          : static_cast<const float*>(a.res)[o + i];
-      v = __fadd_rn(r, __fmul_rn(a.gate[(long)a.bv[row] * a.N + col + i], v));
-    }
-    if (a.out_bf16) static_cast<__nv_bfloat16*>(a.out)[o + i] = __float2bfloat16_rn(v);
-    else static_cast<float*>(a.out)[o + i] = v;
-  }
 }
 
 // The staging warps (1-3 of the producer group): for each unit, once the
@@ -547,73 +409,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// -- host side ---------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {         // libcuda's cuTensorMapEncodeTiled, once
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a K-major (rows, Kp) int8 matrix, in boxes of box_rows x BK
-// bytes, 128-byte swizzle, zero fill outside the matrix.
-cudaError_t make_map(CUtensorMap* map, const void* p, int rows, int Kp,
-                     int box_rows) {
-  EncodeTiled fn = encoder();
-  if (!fn) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(p) % 16 || Kp % KPAD)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[2] = {(cuuint64_t)Kp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)Kp};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<void*>(p), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-int aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-int aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
-
 template <bool MRQ>
 cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
                         const CUtensorMap& mw, GArgs g, cudaStream_t s) {
   constexpr int bytes = Layout<MRQ>::BYTES;
-  static cudaError_t attr[64];     // once a device: the shared-memory
-  static int sms[64];              // size and the SM count
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int sms = 1;
+  const cudaError_t e = kernel_sms<gemm_kernel<MRQ>>(bytes, &sms);
   if (e != cudaSuccess) return e;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!sms[dev]) {
-    attr[dev] = cudaFuncSetAttribute(
-        gemm_kernel<MRQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (attr[dev] == cudaSuccess)
-      attr[dev] = cudaDeviceGetAttribute(&sms[dev],
-                                         cudaDevAttrMultiProcessorCount, dev);
-    if (attr[dev] != cudaSuccess) sms[dev] = 1;
-  }
-  if (attr[dev] != cudaSuccess) return attr[dev];
   const int nk = (g.Kp + BK - 1) / BK;
   if (g.ks < 1 || g.ks > nk || (g.ks > 1 && !g.ws))
     return cudaErrorInvalidValue;
@@ -624,7 +426,7 @@ cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
   // persistent: one CTA per SM (or per unit) walks the units
   const long units = (long)((g.N + BN - 1) / BN) * ((g.M + BM - 1) / BM) * g.ks;
   if (units > INT_MAX) return cudaErrorInvalidValue;
-  gemm_kernel<MRQ><<<(unsigned)(units < sms[dev] ? units : sms[dev]), THREADS,
+  gemm_kernel<MRQ><<<(unsigned)(units < sms ? units : sms), THREADS,
                      bytes, s>>>(ma, mb, mw, g);
   return cudaGetLastError();
 }

@@ -35,38 +35,51 @@ from repro_torch.kernels.int8_fused import (
     group_arg, prep, row_groups,
 )
 
-_BK = 64                 # the kernel's k tile (csrc/int4_packed.cu)
+_BK = 128                # the kernel's k tile (csrc/int4_packed.cu)
+_BW = 128                # its channel tile: two consumer warpgroups of 64
+_MAX_GROUP_K = 32768     # the kernel's bound (exact s32 and f32 steps)
 
 
 def _padded_group(group_k: int) -> int:
     """Code columns per K group in the kernel: group_k rounded up to the
-    64-deep k tile, so no tile straddles two scale groups."""
+    128-deep k tile, so no tile straddles two scale groups."""
     return -_BK * (-group_k // _BK)
 
 
-# Byte order inside each 16-byte chunk (32 k codes) of the kernel's weight
-# copy: thread t of an mma quad reads bytes 4t..4t+3, which must hold k
-# 4t..4t+3 (pack bytes 2t, 2t+1) and k 16+4t..19+4t (pack bytes 8+2t,
-# 9+2t) — its two B fragments.
+# Byte order inside each 16-byte chunk (32 k codes, one k32 step) of a
+# channel: bytes 4t..4t+3 hold k 4t..4t+3 (pack bytes 2t, 2t+1) and k
+# 16+4t..19+4t (pack bytes 8+2t, 9+2t) — the two registers of wgmma's A
+# fragment that thread t of a quad holds for that channel.
 _FRAGMENT_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 
 def _weight_layout(wp, group_k: int):
-    """The packed weights as (N, Kq/2), k-contiguous, each K group padded
-    with zero bytes to ``_padded_group(group_k) / 2``, each 16-byte chunk
-    in ``_FRAGMENT_ORDER`` — the layout the kernel streams. A byte gather
-    of the pack: nibble pairs never straddle a group (group_k is even),
-    so the encoding is unchanged. Built once per weight tensor and kept
-    while the weight lives (half the int8 copy's size)."""
+    """The packed weights as the kernel streams them: a flat int8 tensor of
+    8192-byte blocks, one per (tile of 128 channels, k tile of 128), the
+    channel tile major. Channels past N and each K group's padding up to
+    ``_padded_group(group_k)`` are zero bytes. Within a block, channel
+    ``64 c + 16 w + 8 h + q`` (consumer warpgroup c, warp w, quad q) and
+    thread ``t`` of the quad own 16 bytes at ``((4 c + w) * 2 + h) * 512 +
+    (4 q + t) * 16``: for each of the tile's 4 k32 steps, the 4 bytes of
+    ``_FRAGMENT_ORDER`` that thread t reads — one 16-byte load per channel
+    and tile. A byte gather of the pack: nibble pairs never straddle a
+    group (group_k is even), so the encoding is unchanged. Built once per
+    weight tensor and kept while the weight lives (the pack's size, padded)."""
     def build(w):
         half_k, N = w.shape
         nk = 2 * half_k // group_k
         gkp = _padded_group(group_k)
-        w3 = w.reshape(nk, group_k // 2, N)
-        out = torch.zeros((N, nk, gkp // 2), dtype=torch.int8, device=w.device)
-        out[:, :, :group_k // 2] = w3.permute(2, 0, 1)
+        Np, nkt = -_BW * (-N // _BW), nk * gkp // _BK
+        rows = torch.zeros((Np, nk, gkp // 2), dtype=torch.int8,
+                           device=w.device)
+        rows[:N, :, :group_k // 2] = w.reshape(nk, group_k // 2, N) \
+            .permute(2, 0, 1)
         order = torch.tensor(_FRAGMENT_ORDER, device=w.device)
-        return out.reshape(N, -1, 16)[:, :, order].reshape(N, nk * gkp // 2)
+        chunks = rows.reshape(Np, nkt * 4, 16)[:, :, order]
+        # (tile, c, w, h, q, k tile, step, t, byte) -> (tile, k tile, c, w,
+        # h, q, t, step, byte)
+        t = chunks.reshape(Np // _BW, 2, 4, 2, 8, nkt, 4, 4, 4)
+        return t.permute(0, 5, 1, 2, 3, 4, 7, 6, 8).reshape(-1).contiguous()
     return cached_layout(wp, ("int4", group_k), build)
 
 
@@ -75,9 +88,9 @@ def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     M, K = x.shape
     Kp, N = 2 * wp.shape[0], wp.shape[1]
     if group_k <= 0 or group_k % 2 or Kp % group_k or Kp // group_k != \
-            -(-K // group_k):
+            -(-K // group_k) or group_k > _MAX_GROUP_K:
         raise ValueError(f"int4: group_k {group_k} does not tile the packed "
-                         f"K {Kp} (x has K {K})")
+                         f"K {Kp} (x has K {K}) or exceeds {_MAX_GROUP_K}")
     nk = Kp // group_k
     dev = x.device
     _need(wp, "wp", (torch.int8,), (Kp // 2, N), dev)

@@ -1,12 +1,16 @@
-"""Device time of the fused int8 linears at the DiT-XL/2 serving shapes.
+"""Device time of the fused linears at the DiT-XL/2 serving shapes.
 
     python src/repro_torch/launch/gemm_times.py [--src DIR] [--reps 30] \
-        [--vec] [--label NAME]
+        [--vec] [--int4] [--label NAME]
 
-For each int8 linear of a W8A8 DiT-XL/2 forward at 2B = 8 rows (qkv,
-proj, fc1, fc2, ada, final, x_proj, t_mlp1, t_mlp2, final_ada; bf16,
-bits 8, each with the fusion it serves with, G = 10 at group 3; with
-``--vec`` the slot pool's B6a/B6b at one group per CFG row) prints:
+For each linear of a DiT-XL/2 forward at 2B = 8 rows (qkv, proj, fc1,
+fc2, ada, final, x_proj, t_mlp1, t_mlp2, final_ada; bf16, each with the
+fusion it serves with, G = 10 at group 3; with ``--vec`` also the slot
+pool's per-row-group kernels at qkv and fc2, one group per CFG row) at
+W8A8 through the int8 family (B1/B2, ``--vec`` B6a/B6b), or with
+``--int4`` at W4A4 through the packed-int4 family (B4/B5, ``--vec``
+B7a/B7b: nibble weights from ``ref.pack_int4``, K groups of 256, x_proj's
+16) prints:
 
 - device ms per call: the CUDA kernels' durations summed by
   ``torch.profiler`` over ``--reps`` calls, split into the quantize pass
@@ -16,7 +20,8 @@ bits 8, each with the fusion it serves with, G = 10 at group 3; with
   kernels are fast, the host sets this pace);
 - bound ms: the least time the card could take for the call's work, the
   larger of its bytes (each input read once, each output written once)
-  at 3.35 TB/s and its int8 operations at 1979 TOP/s (H100 SXM).
+  at 3.35 TB/s and its int8 operations at 1979 TOP/s (H100 SXM); int4
+  weights count K x N / 2 bytes.
 
 The last line is a JSON list of the rows. ``--src`` puts DIR first on
 the import path, so one script times another tree's kernels (a parent
@@ -35,7 +40,7 @@ import sys
 
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 INT8_OPS = 1979e12         # dense int8 tensor-core peak, ops/s
-# (op, M, K, N, fusion, MRQ) of one W8A8 DiT-XL/2 forward at 2B = 8 rows
+# (op, M, K, N, fusion, MRQ) of one DiT-XL/2 forward at 2B = 8 rows
 SHAPES = [("qkv", 2048, 1152, 3456, "norm_mod", False),
           ("proj", 2048, 1152, 1152, "gate_residual", False),
           ("fc1", 2048, 1152, 4608, "norm_mod", False),
@@ -54,26 +59,46 @@ def bound(nbytes: float, int8_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8):
+def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8, int4=False):
     """(run, bytes, int8 operations) of one fused linear call on the
-    card: bf16 x, random weight codes, G = 10 scale stacks."""
+    card: bf16 x, random weight codes, G = 10 scale stacks (``int4``:
+    packed nibbles, per-(K group, channel) scales)."""
     import torch
+    from repro_torch.kernels import int4_packed as F4
     from repro_torch.kernels import int8_fused as F8
+    from repro_torch.kernels.ref import pack_int4
     dev, dt = torch.device("cuda"), torch.bfloat16
+    if int4:
+        bits = 4
     half, B, G, g = 2 ** (bits - 1), 8, 10, 3
+    group_k = min(256, K)
+    nk = -(-K // group_k) if int4 else 1
     x = torch.randn(M, K, device=dev, generator=gen)
     if mrq:                                # post-GELU-like input
         x = torch.nn.functional.gelu(x * 2, approximate="tanh")
     x = x.to(dt)
-    wq = torch.randint(-(half - 1), half, (K, N), device=dev, generator=gen,
-                       dtype=torch.int8)
+    wq = torch.randint(-(half - 1), half, (nk * group_k if int4 else K, N),
+                       device=dev, generator=gen, dtype=torch.int8)
+    wq[K:] = 0
     rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
-    scale_w = torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4
+    scale_w = torch.rand(nk, N, device=dev, generator=gen) * 1e-3 + 1e-4
     bias = torch.randn(N, device=dev, generator=gen) * 0.1
     bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(
         -(-M // B))[:M].contiguous()
-    kw = {"bits": bits, "out_dtype": dt}
-    nbytes = (M * K * 2 + K * N + (G if vec else 1) * N * 4 * 2 + N * 4
+    if int4:
+        w_arg = pack_int4(wq)
+        colsum = wq.to(torch.int32).reshape(nk, group_k, N).sum(
+            1, dtype=torch.int32)
+        expand = lambda s: s[:, :, None] * scale_w[None]
+        kw = {"group_k": group_k, "out_dtype": dt}
+        mod = F4
+    else:
+        w_arg, colsum = wq, wq.to(torch.int32).sum(0, dtype=torch.int32)[None]
+        expand = lambda s: s * scale_w
+        kw = {"bits": bits, "out_dtype": dt}
+        mod = F8
+    nbytes = (M * K * 2 + (K * N // 2 if int4 else K * N)
+              + (G if vec else 1) * nk * N * 4 * 2 + N * 4
               + M * N * 2 + (M * 4 if vec else 0))
     if fusion == "norm_mod":
         kw.update(nm=(torch.randn(B, K, device=dev, generator=gen) * 0.1,
@@ -85,17 +110,19 @@ def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8):
                       torch.randn(M, N, device=dev, generator=gen).to(dt)),
                   bv=bv)
         nbytes += B * N * 4 + M * N * 2 + M * 4
+    family = "int4" if int4 else "int8"
     if mrq:
         s_neg, s_pos = rate * (0.2 / half), rate * (6.0 / half)
-        args = (x, wq, s_neg, s_pos, s_neg * scale_w, s_pos * scale_w, bias)
-        fn = F8.int8_matmul_mrq_fq_vec if vec else F8.int8_matmul_mrq_fq
+        args = (x, w_arg, s_neg, s_pos, expand(s_neg), expand(s_pos), bias)
+        name = f"{family}_matmul_mrq_fq"
     else:
         sx = rate * (8.0 / (2 * half - 1))
         zx = torch.round(4.0 / sx)
-        corr = (torch.round(zx).to(torch.int32) - half) \
-            * wq.to(torch.int32).sum(0, dtype=torch.int32)[None]
-        args = (x, wq, sx, zx, sx * scale_w, corr, bias)
-        fn = F8.int8_matmul_fq_vec if vec else F8.int8_matmul_fq
+        z_eff = torch.round(zx).to(torch.int32) - half
+        corr = (z_eff[:, :, None] if int4 else z_eff) * colsum
+        args = (x, w_arg, sx, zx, expand(sx), corr, bias)
+        name = f"{family}_matmul_fq"
+    fn = getattr(mod, name + ("_vec" if vec else ""))
     if vec:
         grp = torch.tensor(SLOT_GROUPS, dtype=torch.int32, device=dev)
         gv = grp.repeat_interleave(-(-M // B))[:M].contiguous()
@@ -143,34 +170,34 @@ def wrapper_ms(run, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_shape(op, M, K, N, fusion, mrq, vec, gen, reps):
+def time_shape(op, M, K, N, fusion, mrq, vec, gen, reps, int4=False):
     """One row: the call's device ms (total, quantize, GEMM), wrapper ms
     and bound."""
-    run, nbytes, ops = make_call(op, M, K, N, fusion, mrq, vec, gen)
+    run, nbytes, ops = make_call(op, M, K, N, fusion, mrq, vec, gen,
+                                 int4=int4)
     dev = device_ms(run, reps)
     quant = sum(v for k, v in dev.items() if k.startswith("quantize_kernel"))
+    gemm = sum(v for k, v in dev.items() if k.startswith("gemm"))
     row = {"op": op, "M": M, "K": K, "N": N, "fusion": fusion or "plain",
-           "kernel": ("int8_matmul_mrq_fq" if mrq else "int8_matmul_fq")
+           "kernel": ("int4" if int4 else "int8")
+           + ("_matmul_mrq_fq" if mrq else "_matmul_fq")
            + ("_vec" if vec else ""),
            "device_ms": sum(dev.values()), "quantize_ms": quant,
-           "gemm_ms": sum(v for k, v in dev.items()
-                          if k.startswith("gemm_kernel")),
-           "other_ms": sum(dev.values()) - quant - sum(
-               v for k, v in dev.items() if k.startswith("gemm_kernel")),
+           "gemm_ms": gemm, "other_ms": sum(dev.values()) - quant - gemm,
            "wrapper_ms": wrapper_ms(run, reps)}
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
     return row
 
 
 def time_shapes(reps: int = 30, vec: bool = False, shapes=SHAPES,
-                log=print):
-    """Rows for every serving shape (``--vec``: also B6a/B6b at qkv and
-    fc2)."""
+                log=print, int4: bool = False):
+    """Rows for every serving shape (``vec``: also the per-row-group
+    kernels at qkv and fc2; ``int4``: the packed-int4 family)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [time_shape(*s, False, gen, reps) for s in shapes]
+    rows = [time_shape(*s, False, gen, reps, int4) for s in shapes]
     if vec:
-        rows += [time_shape(*s, True, gen, reps) for s in shapes
+        rows += [time_shape(*s, True, gen, reps, int4) for s in shapes
                  if s[0] in ("qkv", "fc2")]
     for r in rows:
         log(f"  {r['kernel']:<22} {r['op']:<9} {r['M']:>4}x{r['K']:<4}x"
@@ -187,6 +214,8 @@ def main(argv=None) -> None:
                     help="import repro_torch from this directory")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--vec", action="store_true")
+    ap.add_argument("--int4", action="store_true",
+                    help="the packed-int4 family (W4A4) instead of int8")
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
     src = args.src or os.path.join(os.path.dirname(os.path.abspath(
@@ -198,7 +227,7 @@ def main(argv=None) -> None:
         raise SystemExit("gemm_times: needs a CUDA card")
     print(f"{args.label}: repro_torch from {os.path.dirname(repro_torch.__file__)}"
           f" on {torch.cuda.get_device_name(0)}", flush=True)
-    rows = time_shapes(args.reps, args.vec)
+    rows = time_shapes(args.reps, args.vec, int4=args.int4)
     print(json.dumps({"label": args.label, "rows": rows}))
 
 

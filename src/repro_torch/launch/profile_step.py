@@ -21,10 +21,11 @@ slots, after one warm-up chunk): the same forward through the
 per-row-group kernels. ``--ops-json PATH`` writes every host op and
 kernel as ``{"host"|"device": {name: [calls/step, ms/step]}}``.
 
-The int8 GEMM (``gemm_kernel``, one kernel for every int8 linear) is
-split by op: the traced run records each int8 linear launch's (M, K, N)
-in order, and each GEMM kernel event, in start order, takes the op of
-its launch (qkv, proj, fc1, fc2, ada; the others under "rest").
+The GEMMs (``gemm_kernel``, one kernel for every int8 linear, and
+``gemm4_kernel`` for every packed-int4 one) are split by op: the traced
+run records each linear launch's (M, K, N) in order, and each GEMM kernel
+event, in start order, takes the op of its launch (qkv, proj, fc1, fc2,
+ada; the others under "rest").
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import time
 
 
 def op_of(M: int, K: int, N: int, cfg) -> str:
-    """The DiT op of an int8 linear launch of shape (M, K, N)."""
+    """The DiT op of a linear launch of shape (M, K, N)."""
     d, f, tokens = cfg.d_model, cfg.d_ff, M % cfg.n_tokens == 0
     return {(True, d, 3 * d): "qkv", (True, d, d): "proj",
             (True, d, f): "fc1", (True, f, d): "fc2",
@@ -94,13 +95,19 @@ def main(argv=None) -> None:
         run = lambda: engine.run_microbatch(mb)
     run()                                       # warm-up: builds, caches
     torch.cuda.synchronize()
-    from repro_torch.kernels import int8_fused
-    shapes, launch = [], int8_fused._launch
+    from repro_torch.kernels import int4_packed, int8_fused
+    # each GEMM launch's shape, by kernel: gemm_kernel (int8), gemm4_kernel
+    families = {"gemm_kernel<": int8_fused, "gemm4_kernel<": int4_packed}
+    shapes = {k: [] for k in families}
+    launches = {k: m._launch for k, m in families.items()}
 
-    def recorded(mrq, x, wq, *a, **k):          # each int8 GEMM's shape
-        shapes.append((x.shape[0], x.shape[1], wq.shape[1]))
-        return launch(mrq, x, wq, *a, **k)
-    int8_fused._launch = recorded
+    def recorder(key):
+        def recorded(mrq, x, w, *a, **k):
+            shapes[key].append((x.shape[0], x.shape[1], w.shape[1]))
+            return launches[key](mrq, x, w, *a, **k)
+        return recorded
+    for key, mod in families.items():
+        mod._launch = recorder(key)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -109,18 +116,21 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        int8_fused._launch = launch
+        for key, mod in families.items():
+            mod._launch = launches[key]
     if args.async_mode:
         fail_on_degradation(engine)
     by_name = collections.Counter()
     calls = collections.Counter()
-    gemm = []
+    gemm = {k: [] for k in families}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
             calls[e.name] += 1
-            if "gemm_kernel<" in e.name:
-                gemm.append((e.time_range.start, e.time_range.elapsed_us()))
+            for key in families:
+                if key in e.name:
+                    gemm[key].append((e.time_range.start,
+                                      e.time_range.elapsed_us()))
     dev_us = sum(by_name.values())
     n = args.steps
     smi = torch.cuda.get_device_name(0)
@@ -135,13 +145,15 @@ def main(argv=None) -> None:
     for name, us in by_name.most_common(args.top):
         print(f"  {us / n / 1e3:9.3f} ms/step {100 * us / dev_us:5.1f}% "
               f"{calls[name] // n:5d} calls/step  {name[:90]}")
-    if shapes:
-        split = gemm_by_op(gemm, shapes, cfg)
+    for key in families:
+        if not shapes[key]:
+            continue
+        split = gemm_by_op(gemm[key], shapes[key], cfg)
         if split is None:
-            print(f"  gemm_kernel by op: {len(gemm)} kernel events for "
-                  f"{len(shapes)} int8 launches, not split")
+            print(f"  {key[:-1]} by op: {len(gemm[key])} kernel events for "
+                  f"{len(shapes[key])} launches, not split")
         else:
-            print("  gemm_kernel by op: " + "; ".join(
+            print(f"  {key[:-1]} by op: " + "; ".join(
                 f"{op} {us / n / 1e3:.3f} ms/step ({c // n} calls, "
                 f"{us / c:.2f} us each)" for op, (c, us) in split.items()
                 if c))

@@ -808,3 +808,132 @@ def test_int8_gemm_is_wgmma_and_tma(dev):
     counts = build.sass_counts("int8_fused", "gemm_kernel")
     assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
     assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts
+
+
+# -- the wgmma int4 GEMM (gemm4_kernel: B4, B5, B7a, B7b) -------------------
+# (M, K, N, group_k): ragged M on the 128-row (MRQ: 64) and 8-row tiles, N
+# off the 128-channel tile, a ragged last K group (K 300 and 600 at 256),
+# x_proj's K = group_k = 16, the M = 8 weight streams
+GEMM4_SHAPES = ([(M, K, N, gk) for M in (7, 77, 130)
+                 for K, N, gk in ((16, 32, 16), (300, 131, 256),
+                                  (600, 32, 256))]
+                + [(8, 1152, 1152, 256), (8, 256, 131, 256),
+                   (2048, 1152, 1152, 256)])
+
+
+def _gemm4_case(dev, M, K, N, group_k, mrq, G, seed):
+    """(wrapper, vec wrapper, positional args without bias and group, bias,
+    fusion kwargs by name) of a packed-int4 fused linear with G groups."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = 2
+    nk = -(-K // group_k)
+    x = torch.randn(M, K, device=dev, generator=g)
+    codes = torch.randint(-8, 8, (nk * group_k, N), device=dev, generator=g)
+    codes[K:] = 0
+    wp = pack_int4(codes)
+    s = 0.05 + 0.02 * torch.rand(G, 1, device=dev, generator=g)
+    scale = torch.rand(G, nk, N, device=dev, generator=g) * 1e-2
+    bias = torch.randn(N, device=dev, generator=g)
+    bv = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(
+        -(-M // B))[:M].contiguous()
+    fusions = {
+        "nm": {"nm": (torch.randn(B, K, device=dev, generator=g) * 0.1,
+                      torch.randn(B, K, device=dev, generator=g) * 0.1),
+               "bv": bv},
+        "gr": {"gr": (torch.randn(B, N, device=dev, generator=g),
+                      torch.randn(M, N, device=dev, generator=g)), "bv": bv},
+        "ps": {"ps": 0.5 + torch.rand(K, device=dev, generator=g)}}
+    if mrq:
+        x = torch.nn.functional.gelu(x * 2, approximate="tanh")
+        return (F4.int4_matmul_mrq_fq, F4.int4_matmul_mrq_fq_vec,
+                (x, wp, s * 0.1, s * 2, scale, scale * 0.5), bias, fusions)
+    corr = torch.randint(-999, 999, (G, nk, N), device=dev, generator=g,
+                         dtype=torch.int32)
+    return (F4.int4_matmul_fq, F4.int4_matmul_fq_vec,
+            (x, wp, s, torch.round(2.0 / s), scale, corr), bias, fusions)
+
+
+def _with_dtype(args, fused, dt):
+    args = (args[0].to(dt),) + args[1:]
+    if "gr" in fused:
+        fused = dict(fused, gr=(fused["gr"][0], fused["gr"][1].to(dt)))
+    return args, fused
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mrq", [False, True])
+@pytest.mark.parametrize("M,K,N,group_k", GEMM4_SHAPES)
+def test_int4_gemm_matches_plain(dev, M, K, N, group_k, mrq, dt):
+    """B4 and B5 bit for bit against their plain versions, f32 and bf16
+    in and out, with and without bias and each fusion (norm_mod prologue,
+    gate + residual epilogue, prescale), one launch per call."""
+    fn, _, args, bias, fusions = _gemm4_case(dev, M, K, N, group_k, mrq, 3,
+                                             M + K + N)
+    name = fn.__name__
+    for b in (None, bias):
+        for fname, fused in [("none", {})] + list(fusions.items()):
+            a, fz = _with_dtype(args, fused, dt)
+            run = lambda: fn(*a, b, 2, group_k=group_k, out_dtype=dt, **fz)
+            before = kernels.LAUNCHES[name]
+            out = run()
+            assert kernels.LAUNCHES[name] == before + 1
+            assert out.dtype == dt and out.shape == (M, N)
+            ref = _plain(run)
+            assert torch.equal(out, ref), (b is None, fname,
+                                           (out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("G", [10, 20])
+@pytest.mark.parametrize("mrq", [False, True])
+@pytest.mark.parametrize("M,K,N", [(130, 300, 131), (8, 1152, 1152),
+                                   (7, 600, 32)])
+def test_int4_gemm_vec_clamps_and_matches_plain(dev, M, K, N, mrq, G):
+    """B7a and B7b with G groups, mixed per row (each accumulator reads
+    its row's group) and entries outside [0, G): equal to the clamped
+    vector's output and to the plain version's, one launch per call."""
+    _, vec, args, bias, fusions = _gemm4_case(dev, M, K, N, 256, mrq, G,
+                                              M + G)
+    a, fz = _with_dtype(args, fusions["gr"], torch.bfloat16)
+    gv = torch.randint(-3, G + 3, (M,), dtype=torch.int32, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(G))
+    run = lambda v: vec(*a, bias, v, group_k=256, out_dtype=torch.bfloat16,
+                        **fz)
+    name = vec.__name__
+    before = kernels.LAUNCHES[name]
+    out = run(gv)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(out, run(gv.clamp(0, G - 1)))
+    assert torch.equal(out, _plain(lambda: run(gv)))
+
+
+@pytest.mark.parametrize("mrq", [False, True])
+@pytest.mark.parametrize("M,block", [(2048, 256), (77, 3), (8, 1)])
+def test_int4_gemm_vec_equals_scalar_by_group(dev, M, block, mrq):
+    """B7a/B7b against B4/B5: groups in blocks of ``block`` rows (256: every
+    tile shares one group, the serving layout; 3 and 1: tiles of mixed
+    groups) equal the scalar kernel run group by group over each group's
+    rows, and a constant vector equals the scalar kernel at that group."""
+    fn, vec, args, bias, fusions = _gemm4_case(dev, M, 1152, 1152, 256, mrq,
+                                               10, M + block)
+    a, fz = _with_dtype(args, fusions["nm"], torch.bfloat16)
+    kw = dict(group_k=256, out_dtype=torch.bfloat16, **fz)
+    slots = torch.tensor([3, 7, 0, 9, 3, 7, 0, 9], dtype=torch.int32,
+                         device=dev)
+    gv = slots.repeat_interleave(block).repeat(-(-M // (8 * block)))[:M]
+    gv = gv.contiguous()
+    out = vec(*a, bias, gv, **kw)
+    assert torch.equal(out, _plain(lambda: vec(*a, bias, gv, **kw)))
+    assert torch.equal(vec(*a, bias, torch.full_like(gv, 7), **kw),
+                       fn(*a, bias, 7, **kw))
+    for grp in sorted(set(gv.tolist())):
+        rows = gv == grp
+        assert torch.equal(out[rows], fn(*a, bias, grp, **kw)[rows]), grp
+
+
+def test_int4_gemm_is_wgmma_and_tma(dev):
+    """The built int4 GEMM multiplies with wgmma (SASS IGMMA) on code tiles
+    that TMA loads (UTMALDG), and holds no mma.sync (IMMA, HMMA)."""
+    from repro_torch.kernels import build
+    counts = build.sass_counts("int4_packed", "gemm4_kernel")
+    assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
+    assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts

@@ -191,26 +191,33 @@ def test_plain_int4_linear_matches_jax_ref(mrq, fusion, G, group_k):
 
 
 def test_int4_weight_layout_regroups_packed_bytes():
-    """The kernel's weight copy: (N, Kq/2), each K group's bytes zero-padded
-    to the 64-deep tile, each 16-byte chunk in the mma fragment order —
-    the pack's bytes, regrouped: thread t's word of chunk c holds k codes
-    32c + 4t..4t+3 and 32c + 16+4t..19+4t."""
+    """The kernel's weight copy: 8192-byte blocks per (128 channels, k tile
+    of 128), each K group's bytes zero-padded to the 128-deep tile, channels
+    past N zero — the pack's bytes, regrouped: channel 64 c + 16 w + 8 h + q
+    and thread t of its quad own 16 bytes at ((4 c + w) * 2 + h) * 512 +
+    (4 q + t) * 16, whose word s holds k codes 128 kt + 32 s + 4t..4t+3 and
+    + 16+4t..19+4t (tests/test_torch_int4_layout.py replays the widening)."""
     group_k, nk, n_cols = 40, 3, 5
     codes = torch.randint(-8, 8, (nk * group_k, n_cols), dtype=torch.int8)
     wp = tref.pack_int4(codes)
     wt = F4._weight_layout(wp, group_k)
-    assert wt.shape == (n_cols, nk * 32) and wt.is_contiguous()
-    words = tref.unpack_int4(wt.reshape(n_cols, nk, 2, 4, 4).permute(
-        4, 0, 1, 2, 3))                          # (8 codes, n, kg, c, t)
-    for kg in range(nk):
-        for c in range(2):
+    assert wt.shape == (nk * 8192,) and wt.is_contiguous()
+    blocks = wt.reshape(nk, 2, 4, 2, 8, 4, 4, 4)  # kt, c, w, h, q, t, s, byte
+    for ch in range(128):
+        c, w, h, q = ch // 64, (ch // 16) % 4, (ch // 8) % 2, ch % 8
+        for kg in range(nk):                       # one k tile per group
             for t in range(4):
-                for j, k in enumerate([4 * t + i for i in range(4)]
-                                      + [16 + 4 * t + i for i in range(4)]):
-                    row = 32 * c + k
-                    want = (codes[kg * group_k + row] if row < group_k
-                            else torch.zeros(n_cols, dtype=torch.int8))
-                    assert torch.equal(words[j, :, kg, c, t], want)
+                word = tref.unpack_int4(blocks[kg, c, w, h, q, t].reshape(
+                    16, 1))[:, 0]                  # 32 codes: s, byte, nibble
+                for s_ in range(4):
+                    got = word[8 * s_:8 * s_ + 8]
+                    ks = ([32 * s_ + 4 * t + i for i in range(4)]
+                          + [32 * s_ + 16 + 4 * t + i for i in range(4)])
+                    want = torch.tensor([
+                        int(codes[kg * group_k + k, ch])
+                        if k < group_k and ch < n_cols else 0 for k in ks],
+                        dtype=torch.int8)
+                    assert torch.equal(got, want), (ch, kg, t, s_)
     assert F4._weight_layout(wp, group_k) is wt         # built once
 
 
