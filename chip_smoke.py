@@ -9,10 +9,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
 
 1. build   — compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
              per source, in parallel); print the build seconds, ptxas's
-             register, spill and wgmma-serialisation lines, the card's
-             name and power limit, and the SASS of the int8 GEMM and of
-             the packed-int4 GEMM (each fatal unless it holds wgmma and
-             TMA loads and no mma.sync).
+             register, spill and wgmma-serialisation lines (the flash
+             kernel's per instantiation, fatal on a spill or a C7513),
+             the card's name and power limit, and the SASS of the int8
+             GEMM and of the packed-int4 GEMM (each fatal unless it holds
+             wgmma and TMA loads and no mma.sync) and of the flash kernel
+             (fatal unless it holds wgmma and no mma.sync).
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
@@ -51,7 +53,13 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              (``launch/gemm_times.py [--int4]``: the profiler's kernel
              durations, quantize pass and GEMM apart) beside their
              wrapper times and bounds; the kernels line's ms for B1, B2,
-             B4, B5, B6a, B6b, B7a, B7b and B11 is that device time.
+             B4, B5, B6a, B6b, B7a, B7b and B11 is that device time. Then
+             one attention call at the serving shape through
+             ``ops.flash_attention`` on the qkv views
+             (``launch/attn_times.py``: B3, B3b, B8, and B3 with a causal
+             mask) in device time, asserting one launch a call, beside
+             its bound and SDPA; the kernels line's ms for B3, B3b and B8
+             is that device time.
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -63,7 +71,9 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              finite samples, and launch counts (set to 0 before the serve,
              read after it) equal to ops packed per kernel x forwards, and
              holds one full-width forward on the kernels against the plain
-             versions. Then, with the same params and artifact, the
+             versions; one more forward under the profiler must launch
+             one flash_kernel per block and no codes_kernel. Then, with the
+             same params and artifact, the
              continuous-batching engine (``AsyncServeEngine``: microbatch
              4, buckets (10, 20), chunk 4, pipeline 2, CFG 1.5) serves 12
              requests alternating 10 and 20 steps; asserts every outcome
@@ -862,6 +872,41 @@ def phase_gemm_device(rows):
     return table
 
 
+ATTN_TIMED = {"flash_attn_mrq": "B3 bits 8",
+              "flash_attn_mrq_packed_kv": "B3b bits 4 packed kv",
+              "flash_attn_mrq_vec": "B8 bits 8",
+              "flash_attn_mrq_vec_packed_kv": "B8 bits 4 packed kv"}
+
+
+def phase_attn_device(rows):
+    """One attention call at the serving shape through
+    ``ops.flash_attention`` on the qkv views (``launch/attn_times.py``):
+    device time by the profiler over 30 calls, launches per call, bound
+    and SDPA on the same bf16 q, k, v; the kernels line's ms for B3, B3b
+    and B8 is that device time (their wrapper time, CUDA events on the
+    public entry point, stays beside it), and the causal-masked call is
+    shown beside the unmasked one."""
+    from repro_torch.launch import attn_times
+    log("attention call (ops.flash_attention on the (8, 256, 3, 16, 72) "
+        "bf16 qkv views), device time per call:")
+    table = {r["case"]: r for r in attn_times.time_cases(reps=30, log=log)}
+    for name, case in ATTN_TIMED.items():
+        r = table[case]
+        if r["launches"] != 1:
+            raise AssertionError(f"{case}: {r['launches']} launches a call")
+        row = rows[name]
+        row["wrapper_ms"], row["ms"] = row["ms"], r["device_ms"]
+        row["bound_ms"], row["bound_by"] = r["bound_ms"], r["bound_by"]
+        row["library_ms"] = r["sdpa_ms"]
+    masked = table["B3 bits 8 causal mask"]
+    log(f"masked B3 (causal, bits 8): device {masked['device_ms']:.4f} ms "
+        f"in {masked['launches']:.0f} launches, of which the kernel "
+        + ", ".join(f"{k} {v:.4f}" for k, v in masked["by_kernel"].items()
+                    if "flash_kernel" in k)
+        + f"; unmasked {table['B3 bits 8']['device_ms']:.4f} ms")
+    return table
+
+
 # ---------------------------------------------------------------------------
 # phase 3: trained checkpoint, quantized vs fp drift at each width
 # ---------------------------------------------------------------------------
@@ -968,6 +1013,7 @@ def serve_width(bits):
     TIMES[(bits, "flash", "sync 8x20")] = (dt / forwards * 1e3,
                                            requests / dt)
     forward_vs_plain(bits, cfg, params, art.context())
+    flash_forward_kernels(bits, cfg, params, art.context())
     return launches, cfg, params, art, reqs, samples
 
 
@@ -997,6 +1043,44 @@ def forward_vs_plain(bits, cfg, params, ctx):
     if not rel <= tol:
         raise AssertionError(f"{bits} {ctx.attn_impl} forward rel error "
                              f"{rel} > {tol}")
+
+
+def flash_forward_kernels(bits, cfg, params, ctx):
+    """One full-width flash forward under the profiler: one flash launch
+    per block (the wrappers' counts) and no codes_kernel among the
+    profiler's kernel events (q, k and v are quantized inside the flash
+    kernel, read from the qkv views). The profiler can drop an event, so
+    it is held to at most one flash_kernel per block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.models.dit import dit_apply
+    x = torch.zeros(8, cfg.img_size, cfg.img_size, cfg.in_ch, device="cuda")
+    t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
+    y = torch.arange(8, device="cuda") % cfg.n_classes
+    ctx = ctx.with_tgroup(5)
+    with torch.no_grad():
+        dit_apply(params, cfg, x, t, y, ctx=ctx)
+        torch.cuda.synchronize()
+        before = sum(v for k, v in kernels.LAUNCHES.items()
+                     if k.startswith("flash_attn_mrq"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dit_apply(params, cfg, x, t, y, ctx=ctx)
+            torch.cuda.synchronize()
+    launched = sum(v for k, v in kernels.LAUNCHES.items()
+                   if k.startswith("flash_attn_mrq")) - before
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    flash = sum("flash_kernel" in n for n in names)
+    codes = sum("codes_kernel" in n for n in names)
+    log(f"full width {bits} flash forward: {launched} flash launches; "
+        f"profiler: {len(names)} kernel events, {flash} flash_kernel, "
+        f"{codes} codes_kernel")
+    if launched != cfg.n_layers or codes or not 0 < flash <= cfg.n_layers:
+        raise AssertionError(f"{bits} flash forward: {launched} launches and "
+                             f"{flash} flash_kernel events for "
+                             f"{cfg.n_layers} blocks, {codes} codes_kernel")
 
 
 TIMES = {}     # (width, attn_impl, serve) -> (ms/step, req/s), this run
@@ -1329,6 +1413,39 @@ def phase_entry_points():
     return launches
 
 
+def flash_ptxas():
+    """Phase 1 for the flash kernel: ptxas's registers, spills and wgmma
+    serialisation (C7513) per instantiation, and its SASS: wgmma (IGMMA)
+    and no mma.sync (IMMA, HMMA). Fatal on an mma.sync, a C7513, or a
+    spill in a serving (FAST, ``...Lb1E``) instantiation; the fallback
+    instantiations' spills (masks, ragged kv, unaligned rows) are
+    printed."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    fn, spilled = None, []
+    for line in kbuild.BUILD_LOG.get("flash_attn_mrq", "").splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(flash_kernel\w*)'",
+                      line)
+        if m or "Compiling entry function" in line:
+            fn = m.group(1) if m else None
+            continue
+        if fn and ("registers" in line or "spill" in line or "C75" in line):
+            log(f"  ptxas {fn}: {line.strip()}")
+            s = re.search(r"(\d+) bytes spill stores", line)
+            if (s and int(s.group(1)) and fn.endswith("Lb1EEEvNS_4ArgsE")) \
+                    or "C7513" in line:
+                spilled.append(fn)
+    sass = kbuild.sass_counts("flash_attn_mrq", "flash_kernel",
+                              ops=("IGMMA", "IMMA", "HMMA"))
+    log(f"flash_attn_mrq (flash_kernel) SASS: {sass['IGMMA']} IGMMA (wgmma), "
+        f"{sass['IMMA']} IMMA and {sass['HMMA']} HMMA (mma.sync)")
+    if not sass["IGMMA"] or sass["IMMA"] or sass["HMMA"]:
+        raise AssertionError("flash_kernel is not built on wgmma")
+    if spilled:
+        raise AssertionError(f"flash_kernel spills or serialises: {spilled}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1344,6 +1461,8 @@ def main() -> int:
     secs = kbuild.build_all()
     log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
     for name, text in kbuild.BUILD_LOG.items():
+        if name == "flash_attn_mrq":       # by instantiation: flash_ptxas
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -1352,6 +1471,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(f"card: {smi.stdout.strip()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    flash_ptxas()
     for lib, kern in (("int8_fused", "gemm_kernel"),
                       ("int4_packed", "gemm4_kernel")):
         sass = kbuild.sass_counts(lib, kern, ops=(
@@ -1366,6 +1486,7 @@ def main() -> int:
 
     rows = phase_kernels()
     phase_gemm_device(rows)
+    phase_attn_device(rows)
     drifts = phase_trained()
     launches = phase_serve()
     for name, n in phase_entry_points().items():
@@ -1427,9 +1548,10 @@ def main() -> int:
         bound_ms=rows[name]["bound_ms"], bound_by=rows[name]["bound_by"],
         library_ms=rows[name]["library_ms"])
         for name, (src, rep) in sources.items()]}
-    log("masked flash (causal, bits 8, bf16) beside unmasked: " + ", ".join(
-        f"{k} {MASKED_MS[k]:.4f} ms / {rows[k]['ms']:.4f} ms"
-        for k in MASKED_MS))
+    log("masked flash (causal, bits 8, bf16) beside unmasked, wrapper time "
+        "of the public entry point: " + ", ".join(
+            f"{k} {MASKED_MS[k]:.4f} ms / {rows[k]['wrapper_ms']:.4f} ms"
+            for k in MASKED_MS))
     log(f"total {time.perf_counter() - t0:.1f} s; trained drifts "
         + ", ".join(f"{b} {d:.6f}" for b, d in drifts.items()))
     print(json.dumps(line))

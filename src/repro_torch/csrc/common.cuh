@@ -1,9 +1,8 @@
 // Shared by the port's CUDA sources: the once-per-element quantize pass
 // of the fused linears (csrc/int8_fused.cu: B1, B2; csrc/int4_packed.cu:
 // B4, B5), which runs the prologue fusions; the once-per-element SymQ
-// codes pass of the attention operands (codes_kernel: q, k and v of
-// csrc/flash_attn_mrq.cu, B3/B8, and of csrc/int8_bmm.cu, B9a-d); and the
-// cp.async and mma.sync helpers of every kernel.
+// codes pass of the composed chain's operands (codes_kernel: q, k and v of
+// csrc/int8_bmm.cu, B9a-d); and the cp.async and mma.sync helpers.
 //
 // quantize_kernel writes the activation codes as (M, Kq) int8, four per
 // thread. Code column c holds x column k = (c / gkp) * gk + c % gkp: K is

@@ -104,9 +104,13 @@ _SIGNATURES = {
     },
     "flash_attn_mrq": {
         # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g_qk g_pv mask out
-        # q8 k8 v8t | B M N D rep half packed_kv x_bf16 out_bf16 vec Gq
-        # Gp | stream
-        "flash_attn_mrq_launch": [_P] * 17 + [_I] * 12 + [_P],
+        # strides (14 longs) | Bq M N D rep Hk | scale (float) | half
+        # x_bf16 out_bf16 vec Gq Gp | stream
+        "flash_attn_mrq_launch": [_P] * 14 + [ctypes.POINTER(ctypes.c_long)]
+                                 + [_I] * 6 + [ctypes.c_float] + [_I] * 6
+                                 + [_P],
+        # a b q | n (long) | stream
+        "flash_div_probe": [_P] * 3 + [ctypes.c_long] + [_P],
     },
     "int8_bmm": {
         # q k s_q s_k scale g out q8 k8 | B M N D rep half x_bf16 out_bf16

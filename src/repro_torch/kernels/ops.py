@@ -39,7 +39,7 @@ from repro_torch.core.quantizers import (
 )
 from repro_torch.kernels.act_mrq import act_mrq
 from repro_torch.kernels.flash_attn_mrq import (
-    flash_attn_mrq, flash_attn_mrq_vec,
+    flash_attn_mrq, flash_attn_mrq_vec, flatten_heads,
 )
 from repro_torch.kernels.int4_packed import (
     int4_matmul_fq, int4_matmul_fq_vec, int4_matmul_mrq_fq,
@@ -474,17 +474,6 @@ def int4_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                    _MRQ, {"group_k": pack["group_k"]})
 
 
-def _flatten_heads(q, k, v):
-    """q (B, Sq, Hk, G, hd) -> (B·Hk·G, Sq, hd) and k, v (B, Skv, Hk, hd)
-    -> (B·Hk, Skv, hd): slot-major batch·head rows; GQA stays unmaterialised
-    (q row r reads kv row r // G)."""
-    B, Sq, Hk, G, hd = q.shape
-    Skv = k.shape[1]
-    return (q.permute(0, 2, 3, 1, 4).reshape(B * Hk * G, Sq, hd),
-            k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd),
-            v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd))
-
-
 def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                    scale=1.0, tgroup=None, out_dtype=None):
     """int8 grouped SDPA as the composed three-kernel chain (B9a -> B10a
@@ -504,7 +493,7 @@ def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     B, Sq, Hk, G, hd = q.shape
     Skv = k.shape[1]
     BHG = B * Hk * G
-    qf, kf, vf = _flatten_heads(q, k, v)
+    qf, kf, vf = flatten_heads(q, k, v)
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)
     vec = is_vec(g_qk) or is_vec(g_pv)
@@ -536,20 +525,22 @@ def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
 
 def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                     scale=1.0, tgroup=None, out_dtype=None):
-    """int8 grouped SDPA as ONE flash kernel per (batch·head, q-tile) (B3;
-    at 4 bits with packed kv, B3b; B8 for a group vector).
+    """int8 grouped SDPA as ONE flash kernel launch (B3; at 4 bits with
+    packed kv, B3b; B8 for a group vector).
 
-    q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd). Returns
-    (B, Sq, Hk, G, hd). ``scale`` folds into the QK^T dequant scale. With
-    a per-slot (B,) ``tgroup`` each slot's group repeats over its Hk * G
-    batch·head rows (slot-major after the transpose). ``mask``: boolean,
-    broadcastable to (B, Hk, G, Sq, Skv), True = attend; the kernel sets
-    each masked lane to ``NEG_INF`` before the online max."""
+    q: (B, Sq, Hk, G, hd); k, v: (B, Skv, Hk, hd), at any strides with the
+    head dim contiguous: the kernel reads the q, k and v views of the qkv
+    projection's output where they lie and writes (B, Sq, Hk, G, hd)
+    contiguous, so neither side copies. ``scale`` multiplies the QK^T
+    dequant scale (in the kernel). With a per-slot (B,) ``tgroup`` each
+    slot's group repeats over its Hk * G batch·head rows (slot-major).
+    ``mask``: boolean, broadcastable to (B, Hk, G, Sq, Skv), True = attend;
+    the kernel sets each masked lane to ``NEG_INF`` before the online
+    max."""
     out_dtype = out_dtype or q.dtype
     B, Sq, Hk, G, hd = q.shape
     Skv = k.shape[1]
     BHG = B * Hk * G
-    qf, kf, vf = _flatten_heads(q, k, v)
     mf = None
     if mask is not None:
         mf = torch.broadcast_to(torch.as_tensor(mask, device=q.device),
@@ -557,16 +548,16 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     bits = int(qk_pack.get("bits", 8))
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)
-    args = (qf, kf, vf, qk_pack["s_q"], qk_pack["s_k"],
-            qk_pack["scale"] * float(np.float32(scale)), pv_pack["s1"],
-            pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"])
-    kw = dict(mask=mf, bits=bits, packed_kv=bits == 4, out_dtype=out_dtype)
     if is_vec(g_qk) or is_vec(g_pv):
-        out = flash_attn_mrq_vec(*args, g_qk=_as_vec(g_qk, BHG, q.device),
-                                 g_pv=_as_vec(g_pv, BHG, q.device), **kw)
-    else:
-        out = flash_attn_mrq(*args, g_qk=g_qk, g_pv=g_pv, **kw)
-    return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)
+        g_qk, g_pv = (_as_vec(g, BHG, q.device) for g in (g_qk, g_pv))
+    args = (q, k, v, qk_pack["s_q"], qk_pack["s_k"], qk_pack["scale"],
+            pv_pack["s1"], pv_pack["s_v"], pv_pack["scale1"],
+            pv_pack["scale2"], g_qk, g_pv, mf)
+    kw = dict(scale=scale, bits=bits, packed_kv=bits == 4,
+              out_dtype=out_dtype)
+    if is_vec(g_qk):
+        return flash_attn_mrq_vec(*args, **kw)
+    return flash_attn_mrq(*args, **kw)
 
 
 # ---------------------------------------------------------------------------

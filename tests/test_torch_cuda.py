@@ -328,8 +328,9 @@ def test_vec_kernels_clamp_out_of_range_groups(dev, kind):
 
 
 def test_vec_flash_gqa_codes_kv_per_q_row(dev):
-    """rep = 2: each q row's k and v codes take that row's groups (kv is
-    repeated over the q rows before coding), as the plain version does."""
+    """rep = 2: each q row's k and v codes take that row's groups (the
+    kernel codes the kv rows each q row reads with its groups), as the
+    plain version does."""
     g = torch.Generator(device=dev).manual_seed(5)
     q = torch.randn(4, 70, 40, device=dev, generator=g)
     k, v = (torch.randn(2, 70, 40, device=dev, generator=g) for _ in "kv")
@@ -936,4 +937,200 @@ def test_int4_gemm_is_wgmma_and_tma(dev):
     from repro_torch.kernels import build
     counts = build.sass_counts("int4_packed", "gemm4_kernel")
     assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
+    assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts
+
+
+# -- the one-launch flash kernel (flash_kernel: B3, B3b, B8) -----------------
+def _qkv_packs(dev, bits, G, S, gen):
+    """A (G,)-group qk and pv pack pair of the serving path's form."""
+    half = 2 ** (bits - 1)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    s_q = rate * (6.0 / (half - 1))
+    s1 = torch.clamp(8.0 * (1.0 / S) / half * rate, 1.0 / (half * half * 8),
+                     1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    qk = {"s_q": s_q, "s_k": s_q * 1.05, "scale": s_q * s_q * 1.05,
+          "bits": bits, "groups": G}
+    pv = {"s1": s1, "s_v": s_v, "scale1": s1 * s_v,
+          "scale2": s_v * (1.0 / half), "bits": bits, "groups": G}
+    return qk, pv
+
+
+def _qkv_views(dev, B, S, H, hd, dt, gen):
+    """q, k, v as the DiT block views one (B, S, 3, H, hd) qkv output."""
+    qkv = (torch.randn(B, S, 3, H, hd, device=dev, generator=gen)
+           * 1.5).to(dt)
+    return qkv[:, :, 0].reshape(B, S, H, 1, hd), qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 6, 4])
+@pytest.mark.parametrize("S", [77, 256, 300])
+@pytest.mark.parametrize("D", [8, 40, 72, 128])
+def test_flash_seam_on_qkv_views_matches_plain(dev, D, S, bits, dt):
+    """``ops.flash_attention`` on the strided q, k, v views of a qkv
+    projection output (the serving seam; bits 4 runs B3b): one launch,
+    output in (B, S, H, 1, hd) order, bit for bit the plain version's."""
+    gen = torch.Generator(device=dev).manual_seed(D + S + bits)
+    q, k, v = _qkv_views(dev, 2, S, 3, D, dt, gen)
+    qk, pv = _qkv_packs(dev, bits, 4, S, gen)
+    name = "flash_attn_mrq" + ("_packed_kv" if bits == 4 else "")
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, scale=D ** -0.5,
+                                      tgroup=2)
+    before = kernels.LAUNCHES[name]
+    out = run()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert out.is_contiguous() and tuple(out.shape) == (2, S, 3, 1, D)
+    with kernels.plain_on_cuda():
+        ref = run()
+    assert (out.float() - ref.float()).abs().max() <= \
+        TOLERANCES["B3_vs_plain"][0]
+
+
+@pytest.mark.parametrize("out_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,packed_kv", [(8, False), (6, False),
+                                            (4, False), (4, True)])
+@pytest.mark.parametrize("M,N,D", [(77, 300, 72), (300, 40, 40)])
+def test_flash_gqa_rep2_m_ne_n_matches_plain(dev, M, N, D, bits, packed_kv,
+                                             out_dt):
+    """The public (B, M, D) entry point at M != N and rep = 2 (q rows 2j,
+    2j + 1 read kv row j), bf16 in, f32 or bf16 out; B3b equals unpacked
+    B3 at bits 4."""
+    gen = torch.Generator(device=dev).manual_seed(M + N + bits)
+    half = 2 ** (bits - 1)
+    q = torch.randn(4, M, D, device=dev, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(2, N, D, device=dev, generator=gen)
+            .to(torch.bfloat16) for _ in "kv")
+    s = torch.tensor([[0.03], [0.025]], device=dev) * 8 / half
+    s1 = torch.clamp(s * 0.3, 1.0 / (half * half * 8), 1.0 / half)
+    args = (q, k, v, s, s, s * s * D ** -0.5, s1, s, s1 * s, s / half, 1, 0)
+    kw = dict(bits=bits, packed_kv=packed_kv, out_dtype=out_dt)
+    out = FA.flash_attn_mrq(*args, **kw)
+    with kernels.plain_on_cuda():
+        ref = FA.flash_attn_mrq(*args, **kw)
+    assert (out.float() - ref.float()).abs().max() <= \
+        TOLERANCES["B3_vs_plain"][0]
+    if packed_kv:
+        assert torch.equal(out, FA.flash_attn_mrq(*args, bits=4,
+                                                  out_dtype=out_dt))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("S,D", [(77, 40), (256, 72)])
+def test_flash_seam_vec_equals_scalar_by_slot(dev, S, D, bits):
+    """B8 on the seam: a per-slot tgroup (mixed groups) equals the plain
+    version and, slot by slot, the scalar kernel at that slot's group."""
+    gen = torch.Generator(device=dev).manual_seed(S * bits + D)
+    B, H = 4, 3
+    q, k, v = _qkv_views(dev, B, S, H, D, torch.bfloat16, gen)
+    qk, pv = _qkv_packs(dev, bits, 5, S, gen)
+    slots = torch.tensor([3, 0, 4, 3], dtype=torch.int32, device=dev)
+    run = lambda tg: ops.flash_attention(q, k, v, qk, pv, scale=D ** -0.5,
+                                         tgroup=tg)
+    name = "flash_attn_mrq_vec" + ("_packed_kv" if bits == 4 else "")
+    before = kernels.LAUNCHES[name]
+    out = run(slots)
+    assert kernels.LAUNCHES[name] == before + 1
+    with kernels.plain_on_cuda():
+        assert (out.float() - run(slots).float()).abs().max() <= \
+            TOLERANCES["vec_vs_plain"][0]
+    for b, grp in enumerate(slots.tolist()):
+        assert torch.equal(out[b], run(grp)[b]), b
+
+
+@pytest.mark.parametrize("kind", ["causal", "random", "padding"])
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
+def test_flash_seam_masked_matches_plain(dev, kind, vec):
+    """``ops.flash_attention(mask=...)`` on the qkv views: a causal mask,
+    a random one with fully masked rows, a padding mask on ragged kv."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, D = 2, 77, 2, 40
+    q, k, v = _qkv_views(dev, B, S, H, D, torch.float32, gen)
+    qk, pv = _qkv_packs(dev, 8, 3, S, gen)
+    if kind == "causal":
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    elif kind == "random":
+        mask = torch.rand(B, H, 1, S, S, device=dev, generator=gen) < 0.6
+        mask[:, :, :, :5] = False              # fully masked rows
+    else:
+        mask = (torch.arange(S, device=dev) < 60)[None, None, None, None]
+    tg = torch.tensor([2, 0], dtype=torch.int32, device=dev) if vec else 1
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, mask=mask,
+                                      scale=D ** -0.5, tgroup=tg)
+    out = run()
+    with kernels.plain_on_cuda():
+        ref = run()
+    assert (out - ref).abs().max() <= TOLERANCES["B3_mask_vs_plain"][0]
+
+
+def test_flash_forward_launches_one_kernel_per_attention(dev):
+    """Under the profiler: one ``ops.flash_attention`` call on the qkv
+    views is one kernel (``flash_kernel``: no ``codes_kernel``, no copy of
+    the heads in or out), and a quantized DiT forward launches no
+    ``codes_kernel`` and one flash kernel per block (the wrappers' counts;
+    the profiler may drop an event, so it is held to at most one a
+    block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import build
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = _qkv_views(dev, 2, 256, 4, 72, torch.bfloat16, gen)
+    qk, pv = _qkv_packs(dev, 8, 3, 256, gen)
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, scale=72 ** -0.5,
+                                      tgroup=1)
+    run()
+    torch.cuda.synchronize()
+
+    def kernels_of(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    before = kernels.LAUNCHES["flash_attn_mrq"]
+    names = kernels_of(run)
+    assert kernels.LAUNCHES["flash_attn_mrq"] == before + 1
+    assert len(names) <= 1 and all("flash_kernel" in n for n in names), names
+    cfg, _, _, engine, sq, _ = build("dit-xl-2", True, "w8a8", 0, 2, 2, 2,
+                                     1.5, device="cuda")
+    from repro_torch.serving.batching import coalesce
+    mb = coalesce(sq.pending, 2, (2,))[0]
+    engine.run_microbatch(mb)
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["flash_attn_mrq"]
+    names = kernels_of(lambda: engine.run_microbatch(mb))
+    launched = kernels.LAUNCHES["flash_attn_mrq"] - before
+    assert launched and launched % cfg.n_layers == 0, launched
+    assert not any("codes_kernel" in n for n in names), names
+    assert 0 < sum("flash_kernel" in n for n in names) <= launched
+
+
+def test_flash_quotient_equals_the_ieee_divide(dev):
+    """The kernel's correctly rounded quotient (``div_rn``: a * (1/b) and
+    two FMA corrections) against torch's IEEE division on the card: every
+    finite bf16 numerator over the quantizer's steps, and random
+    probabilities over row denominators and over s1."""
+    a = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    a = (a.to(torch.int16).view(torch.bfloat16)).float()
+    a = a[torch.isfinite(a)]
+    for s in (0.0123, 0.047244094, 1.0 / 127, 0.5, 3.3):
+        b = torch.full_like(a, s)
+        q = (a / b).abs()      # the range the kernel reads codes from
+        ok = (q < 65536) & ((q > 2.0 ** -100) | (a == 0))
+        got = FA.div_probe(a[ok], b[ok])
+        bad = int((got != a[ok] / b[ok]).sum())
+        assert bad == 0, (s, bad)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    e = torch.rand(1 << 22, device=dev, generator=gen)
+    for lo, hi in ((1.0, 300.0), (1e-5, 1.0 / 8)):
+        b = lo + (hi - lo) * torch.rand(1 << 22, device=dev, generator=gen)
+        assert torch.equal(FA.div_probe(e, b), e / b), (lo, hi)
+
+
+def test_flash_kernel_is_wgmma(dev):
+    """The built flash kernel multiplies with wgmma (SASS IGMMA) and holds
+    no mma.sync (IMMA, HMMA)."""
+    from repro_torch.kernels import build
+    counts = build.sass_counts("flash_attn_mrq", "flash_kernel")
+    assert counts["IGMMA"] > 0, counts
     assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts
