@@ -1,27 +1,17 @@
-// Shared by the port's CUDA sources: the once-per-element quantize pass
-// of the fused linears (csrc/int8_fused.cu: B1, B2; csrc/int4_packed.cu:
-// B4, B5), which runs the prologue fusions; the once-per-element SymQ
-// codes pass of the composed chain's operands (codes_kernel: q, k and v of
-// csrc/int8_bmm.cu, B9a-d); and the cp.async and mma.sync helpers.
-//
-// quantize_kernel writes the activation codes as (M, Kq) int8, four per
-// thread. Code column c holds x column k = (c / gkp) * gk + c % gkp: K is
-// cut into groups of gk columns and each group is zero-padded to gkp code
-// columns, so a GEMM k tile never straddles two groups (the int4 family's
-// per-K-group scales). The int8 family passes gk = gkp = Kq: one group,
-// c = k. Columns past K, and the padding of each group, get code 0.
+// Shared by the port's CUDA sources: the group lookup and element loads
+// of every kernel; the correctly rounded quotient (div_rn), rint by the
+// 1.5 x 2^23 add and the byte packing of the prologue pass
+// (csrc/prologue.cuh) and of flash attention (csrc/flash_attn_mrq.cu); the
+// once-per-element SymQ codes pass of the composed chain's operands
+// (codes_kernel: q, k and v of csrc/int8_bmm.cu, B9a-d); and the cp.async
+// and mma.sync helpers.
 //
 // Groups: g points at device int32 group indices read with a row stride
-// gs: gs = 0 reads g[0] for every row (one TGQ group per call: B1, B2,
-// B4, B5), gs = 1 reads g[row] (a per-row group vector: the _vec kernels
-// B6a, B6b, B7a, B7b of the continuous-batching slot pool). Every read
-// goes through group_at, which clamps the index into [0, G): an entry of
-// a caller's vector outside the stacks' G groups reads the nearest group,
-// never memory past the stacks.
-//
-// Exactness: rintf (round half to even, as torch.round / jnp.round),
-// __fdiv_rn (IEEE divide), __fmul_rn/__fadd_rn (each step rounds; built
-// with -fmad=false as well), in the reference's op order.
+// gs: gs = 0 reads g[0] for every row (one TGQ group per call), gs = 1
+// reads g[row] (a per-row group vector: the _vec kernels of the
+// continuous-batching slot pool). Every read goes through group_at, which
+// clamps the index into [0, G): an entry of a caller's vector outside the
+// stacks' G groups reads the nearest group, never memory past the stacks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,16 +20,8 @@
 
 namespace {
 
-struct QArgs {
-  const void* x; const float* s_a; const float* s_b; const int* g;
-  const float* ps; const int* bv; const float* mu; const float* rsig;
-  const float* sh; const float* sc;
-  int8_t* qa; int8_t* qb;                      // (M, Kq) codes
-  int M, K, Kq, half;
-  int gk, gkp;                                 // see the header comment
-  int gs;                                      // group stride: 0 or 1
-  int G;                                       // groups in s_a, s_b
-};
+constexpr int MAGIC = 0x4B400000;   // the bits of 1.5 x 2^23
+constexpr float FMAGIC = 12582912.0f;
 
 // The group of row i: g[i * gs], clamped into [0, G).
 __device__ __forceinline__ int group_at(const int* g, long i, int gs, int G) {
@@ -51,60 +33,36 @@ __device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
   return __bfloat162float(p[i]);
 }
 
-// Prologue (optional): x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b], / ps.
-// Affine:  c = clip(rint(x'/s_a[g]) + s_b[g] - half, -half, half-1).
-// MRQ:     region a (x' < 0): clip(rint(x'/s_a[g]), -half, 0);
-//          region b (x' >= 0): clip(rint(x'/s_b[g]), 0, half-1).
-// with g = group_at(g, row, gs, G).
-template <bool MRQ, typename TX>
-__global__ void quantize_kernel(QArgs a) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int words = a.Kq / 4;
-  if (i >= (long)a.M * words) return;
-  const int row = (int)(i / words), c4 = (int)(i % words) * 4;
-  const int grp = group_at(a.g, row, a.gs, a.G);
-  const float qa = a.s_a[grp], qb = a.s_b[grp];
-  const float fhalf = (float)a.half;
-  const TX* x = static_cast<const TX*>(a.x);
-  float mu = 0.f, rs = 0.f;
-  int b = 0;
-  if (a.mu) { mu = a.mu[row]; rs = a.rsig[row]; b = a.bv[row]; }
-  unsigned wa = 0, wb = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c4 + j, cg = c % a.gkp;
-    const int kk = (c / a.gkp) * a.gk + cg;
-    int ca = 0, cb = 0;
-    if (cg < a.gk && kk < a.K) {
-      float v = ldx(x, (long)row * a.K + kk);
-      if (a.mu) {
-        v = __fmul_rn(__fsub_rn(v, mu), rs);
-        const long o = (long)b * a.K + kk;
-        v = __fadd_rn(__fmul_rn(v, __fadd_rn(1.0f, a.sc[o])), a.sh[o]);
-      }
-      if (a.ps) v = __fdiv_rn(v, a.ps[kk]);
-      if (!MRQ) {
-        float q = __fsub_rn(__fadd_rn(rintf(__fdiv_rn(v, qa)), qb), fhalf);
-        ca = (int)fminf(fmaxf(q, -fhalf), fhalf - 1.f);
-      } else if (v < 0.f) {
-        ca = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qa)), -fhalf), 0.f);
-      } else {
-        cb = (int)fminf(fmaxf(rintf(__fdiv_rn(v, qb)), 0.f), fhalf - 1.f);
-      }
-    }
-    wa |= (unsigned)(ca & 0xFF) << (8 * j);
-    wb |= (unsigned)(cb & 0xFF) << (8 * j);
-  }
-  const long o = (long)row * a.Kq + c4;
-  *reinterpret_cast<unsigned*>(a.qa + o) = wa;
-  if (MRQ) *reinterpret_cast<unsigned*>(a.qb + o) = wb;
+// a / b rounded to nearest even (= __fdiv_rn(a, b)) from y = __frcp_rn(b)
+// and q0 = a * y: a Newton step makes the quotient faithful, Markstein's
+// step rounds it. Holds for finite normal b where no step over- or
+// underflows; the callers use it for quotients below 2^17 and read codes
+// that round a smaller quotient than 2^-100 to 0 either way.
+__device__ __forceinline__ float div_rn(float a, float b, float y, float q0) {
+  const float q1 = __fmaf_rn(__fmaf_rn(-b, q0, a), y, q0);
+  return __fmaf_rn(__fmaf_rn(-b, q1, a), y, q1);
 }
 
-template <bool MRQ, typename TX>
-cudaError_t launch_quantize(const QArgs& q, cudaStream_t s) {
-  const long words = (long)q.M * (q.Kq / 4);
-  quantize_kernel<MRQ, TX><<<(unsigned)((words + 255) / 256), 256, 0, s>>>(q);
-  return cudaGetLastError();
+// rint(q) for |q| < 2^22: adding 1.5 x 2^23 rounds q to an integer (half
+// to even) in the low mantissa bits.
+__device__ __forceinline__ int rint_small(float q) {
+  return __float_as_int(__fadd_rn(q, FMAGIC)) - MAGIC;
+}
+
+// rint(a / b) as a float (y = 1 / b) where |a * y| < 2^16; else a * y
+// itself, which is at least 2^16 in magnitude, or inf or NaN where a / b
+// is: a code clipped to a range far below 2^16 saturates the same way as
+// from rint(a / b), and NaN stays NaN.
+__device__ __forceinline__ float rint_div(float a, float b, float y) {
+  const float q0 = __fmul_rn(a, y);
+  if (!(fabsf(q0) < 65536.f)) return q0;
+  return __fsub_rn(__fadd_rn(div_rn(a, b, y, q0), FMAGIC), FMAGIC);
+}
+
+// The low bytes of a, b, c, d as one word (a in the lowest byte).
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {

@@ -17,14 +17,15 @@
 //   prologue (optional) as B1: x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b],
 //   / ps.
 //   B7a/B7b (VEC): g = gv[row], a per-row (M,) int32 group vector: the
-//   quantize pass reads each row's steps (csrc/common.cuh, gs = 1) and
+//   prologue pass reads each row's steps (csrc/prologue.cuh, gs = 1) and
 //   each K-group rescale reads scale[gv[row], kg, col] (and corr).
 //
-// Two launches per call: quantize_kernel (csrc/common.cuh) writes the
-// activation codes, (M, Kq) int8 with each K group zero-padded to gkp =
-// group_k rounded up to the 128-deep k tile (a zero code adds nothing, and
-// corr counts only real rows), so no k tile straddles two scale groups;
-// gemm4_kernel multiplies them by the nibble weights.
+// Two launches per call: the prologue pass (csrc/prologue.cuh: layernorm
+// statistics, prologue, codes) writes the activation codes, (M, Kq) int8
+// with each K group zero-padded to gkp = group_k rounded up to the
+// 128-deep k tile (a zero code adds nothing, and corr counts only real
+// rows), so no k tile straddles two scale groups; gemm4_kernel multiplies
+// them by the nibble weights.
 //
 // What bounds gemm4_kernel on the card, at the DiT-XL/2 serving shapes:
 // the s8 products at M = 2048 (1979 TOP/s int8 dense: qkv 8.2 us, fc2 22
@@ -85,7 +86,7 @@
 // version's order, groups ascending, no split K, built with -fmad=false:
 // bit-exact against the plain version (repro_torch/kernels/ref.py). A
 // wait on an mbarrier that never completes traps.
-#include "hopper.cuh"
+#include "prologue.cuh"
 
 namespace {
 
@@ -93,8 +94,6 @@ constexpr int BK = TMA_BK;          // k tile: 128 codes
 constexpr int BW = 128;             // channels per tile: two warpgroups of 64
 constexpr int WTILE = BW * BK / 2;  // nibble bytes per (channel tile, k tile)
 constexpr int THREADS = 384;        // warpgroup 0 loads, 1 and 2 multiply
-constexpr int MAGIC = 0x4B400000;   // the bits of 1.5 x 2^23
-constexpr float FMAGIC = 12582912.0f;
 constexpr int MAX_GK = 32768;       // |16 x partial| < 2^25, |partial| <= 2^21
 
 template <bool MRQ, int BA>
@@ -455,14 +454,13 @@ cudaError_t launch_gemm4(const CUtensorMap& ma, const CUtensorMap& mb,
 // The activation tile width: 8 rows for the weight streams (M <= 8), else
 // 128 (MRQ: 64, two region accumulators).
 template <bool MRQ, bool VEC>
-cudaError_t run(const QArgs& q, const G4Args& g, int x_bf16, cudaStream_t s) {
+cudaError_t run(const PArgs& q, const G4Args& g, int x_bf16, int nm_bf16,
+                cudaStream_t s) {
   const int ba = g.M <= 8 ? 8 : MRQ ? 64 : 128;
   CUtensorMap ma, mb;
   cudaError_t e = make_map(&ma, q.qa, g.M, q.Kq, ba);
   if (e == cudaSuccess) e = make_map(&mb, q.qb, g.M, q.Kq, ba);
-  if (e == cudaSuccess)
-    e = x_bf16 ? launch_quantize<MRQ, __nv_bfloat16>(q, s)
-               : launch_quantize<MRQ, float>(q, s);
+  if (e == cudaSuccess) e = launch_prologue<MRQ>(q, x_bf16, nm_bf16, s);
   if (e != cudaSuccess) return e;
   if (ba == 8) return launch_gemm4<MRQ, VEC, 8>(ma, mb, g, s);
   return launch_gemm4<MRQ, VEC, MRQ ? 64 : 128>(ma, mb, g, s);
@@ -480,24 +478,18 @@ extern "C" int int4_matmul_launch(
     const void* x, const void* wt, const void* s_a, const void* s_b,
     const void* scale_a, const void* scale_b, const void* corr,
     const void* bias, const void* g, const void* ps, const void* bv,
-    const void* mu, const void* rsig, const void* sh, const void* sc,
-    const void* gate, const void* res, void* out, void* codes_a,
-    void* codes_b, int M, int K, int Kq, int N, int gk, int gkp, int nk,
-    int x_bf16, int res_bf16, int out_bf16, int mrq, int gs, int G,
+    const void* sh, const void* sc, const void* gate, const void* res,
+    void* out, void* codes_a, void* codes_b, int M, int K, int Kq, int N,
+    int gk, int gkp, int nk, int x_bf16, int nm_bf16, int res_bf16,
+    int out_bf16, int mrq, int gs, int G, long sh_rs, long sc_rs,
     void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || gk <= 0 || gk % 2 || gk > MAX_GK
       || gkp < gk || gkp % BK || Kq != nk * gkp || nk * gk < K
       || (nk - 1) * gk >= K || (gs != 0 && gs != 1) || G <= 0
       || reinterpret_cast<uintptr_t>(wt) % 16)
     return (int)cudaErrorInvalidValue;
-  QArgs q;
-  q.x = x; q.s_a = static_cast<const float*>(s_a); q.s_b = static_cast<const float*>(s_b);
-  q.g = static_cast<const int*>(g); q.ps = static_cast<const float*>(ps);
-  q.bv = static_cast<const int*>(bv); q.mu = static_cast<const float*>(mu);
-  q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
-  q.sc = static_cast<const float*>(sc);
-  q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
-  q.M = M; q.K = K; q.Kq = Kq; q.half = 8; q.gk = gk; q.gkp = gkp; q.gs = gs; q.G = G;
+  const PArgs q = prologue_args(x, s_a, s_b, g, ps, bv, sh, sc, sh_rs, sc_rs,
+                                codes_a, codes_b, M, K, Kq, 8, gk, gkp, gs, G);
   G4Args a;
   a.wt = static_cast<const uint8_t*>(wt);
   a.scale_a = static_cast<const float*>(scale_a);
@@ -514,7 +506,9 @@ extern "C" int int4_matmul_launch(
              && (!gate || (aligned16(gate) && aligned16(res)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (mrq) e = gs ? run<true, true>(q, a, x_bf16, s) : run<true, false>(q, a, x_bf16, s);
-  else e = gs ? run<false, true>(q, a, x_bf16, s) : run<false, false>(q, a, x_bf16, s);
+  if (mrq) e = gs ? run<true, true>(q, a, x_bf16, nm_bf16, s)
+                  : run<true, false>(q, a, x_bf16, nm_bf16, s);
+  else e = gs ? run<false, true>(q, a, x_bf16, nm_bf16, s)
+              : run<false, false>(q, a, x_bf16, nm_bf16, s);
   return (int)e;
 }

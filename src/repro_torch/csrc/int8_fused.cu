@@ -20,11 +20,11 @@
 //   row, gathered from the full (G, .) stacks. One launch serves a batch
 //   whose rows sit at different TGQ groups, and the weights stream once.
 //
-// Two launches per call: quantize_kernel (csrc/common.cuh) runs the
-// prologue and the quantize once per activation element and writes the
-// codes, (M, Kp) int8 with K zero-padded to 16 bytes (B2: two disjoint
-// region-code tensors); gemm_kernel multiplies them by the weights and
-// runs the epilogue.
+// Two launches per call: the prologue pass (csrc/prologue.cuh) runs the
+// layernorm statistics, the prologue and the quantize once per activation
+// element and writes the codes, (M, Kp) int8 with K zero-padded to 16
+// bytes (B2: two disjoint region-code tensors); gemm_kernel multiplies
+// them by the weights and runs the epilogue.
 //
 // What bounds gemm_kernel on the card, at the DiT-XL/2 serving shapes
 // (2B = 8 rows of 256 tokens, M = 2048; d 1152, d_ff 4608):
@@ -79,13 +79,13 @@
 //   bytes a thread (one column at a time at a ragged edge or an unaligned
 //   pointer). The epilogue does not overlap the consumers' next products.
 //
-// Exactness: see csrc/common.cuh (quantize_kernel); the epilogue rounds
+// Exactness: see csrc/prologue.cuh (the codes); the epilogue rounds
 // each step (__fmul_rn/__fadd_rn) in the reference's op order, and the
 // build passes -fmad=false. The group index is read on the device from
 // an int32 pointer and clamped into [0, G) (group_at). A wait on an
 // mbarrier that never completes traps, so a pipeline fault fails the
 // launch instead of hanging the card.
-#include "hopper.cuh"
+#include "prologue.cuh"
 
 namespace {
 
@@ -447,27 +447,22 @@ extern "C" int int8_weight_map(void* map, const void* wt, int N, int Kp) {
 // tensor map of the weights transposed to (N, Kp) (int8_weight_map); ws:
 // the split-K workspace (zeroed; 0 when ks == 1). g: device int32 group
 // index (gs = 0) or per-row (M,) vector (gs = 1), each clamped into
-// [0, G) on the device.
+// [0, G) on the device. sh, sc: the (B, K) adaLN modulation rows (f32, or
+// bf16 with nm_bf16) at row strides sh_rs, sc_rs, or null.
 extern "C" int int8_matmul_launch(
     const void* x, const void* wmap, const void* s_a, const void* s_b,
     const void* scale_a, const void* scale_b, const void* corr,
     const void* bias, const void* g, const void* ps, const void* bv,
-    const void* mu, const void* rsig, const void* sh, const void* sc,
-    const void* gate, const void* res, void* out, void* codes_a,
-    void* codes_b, void* ws, int M, int K, int Kp, int N, int half,
-    int x_bf16, int res_bf16, int out_bf16, int mrq, int gs, int G, int ks,
-    void* stream) {
+    const void* sh, const void* sc, const void* gate, const void* res,
+    void* out, void* codes_a, void* codes_b, void* ws, int M, int K, int Kp,
+    int N, int half, int x_bf16, int nm_bf16, int res_bf16, int out_bf16,
+    int mrq, int gs, int G, int ks, long sh_rs, long sc_rs, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || Kp < K || Kp % KPAD || (gs != 0 && gs != 1)
       || G <= 0)
     return (int)cudaErrorInvalidValue;
-  QArgs q;
-  q.x = x; q.s_a = static_cast<const float*>(s_a); q.s_b = static_cast<const float*>(s_b);
-  q.g = static_cast<const int*>(g); q.ps = static_cast<const float*>(ps);
-  q.bv = static_cast<const int*>(bv); q.mu = static_cast<const float*>(mu);
-  q.rsig = static_cast<const float*>(rsig); q.sh = static_cast<const float*>(sh);
-  q.sc = static_cast<const float*>(sc);
-  q.qa = static_cast<int8_t*>(codes_a); q.qb = static_cast<int8_t*>(codes_b);
-  q.M = M; q.K = K; q.Kq = Kp; q.half = half; q.gk = Kp; q.gkp = Kp; q.gs = gs; q.G = G;
+  const PArgs q = prologue_args(x, s_a, s_b, g, ps, bv, sh, sc, sh_rs, sc_rs,
+                                codes_a, codes_b, M, K, Kp, half, Kp, Kp, gs,
+                                G);
   GArgs a;
   a.scale_a = static_cast<const float*>(scale_a);
   a.scale_b = static_cast<const float*>(scale_b);
@@ -482,13 +477,54 @@ extern "C" int int8_matmul_launch(
   if (e == cudaSuccess) e = make_map(&mb, codes_b, M, Kp, BM);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mrq) e = x_bf16 ? launch_quantize<true, __nv_bfloat16>(q, s)
-                      : launch_quantize<true, float>(q, s);
-  else e = x_bf16 ? launch_quantize<false, __nv_bfloat16>(q, s)
-                  : launch_quantize<false, float>(q, s);
+  e = mrq ? launch_prologue<true>(q, x_bf16, nm_bf16, s)
+          : launch_prologue<false>(q, x_bf16, nm_bf16, s);
   if (e != cudaSuccess) return (int)e;
   return (int)(mrq ? launch_gemm<true>(ma, mb, mw, a, s)
                    : launch_gemm<false>(ma, mb, mw, a, s));
+}
+
+// The prologue pass alone (kernels/prologue.py::codes): the codes of x
+// into codes_a (and codes_b for MRQ), (M, Kq) int8, in the layout of gk,
+// gkp (the int8 family: gk = gkp = Kq). Arguments as above.
+extern "C" int prologue_codes_launch(
+    const void* x, const void* s_a, const void* s_b, const void* g,
+    const void* ps, const void* bv, const void* sh, const void* sc,
+    void* codes_a, void* codes_b, int M, int K, int Kq, int half, int gk,
+    int gkp, int x_bf16, int nm_bf16, int mrq, int gs, int G, long sh_rs,
+    long sc_rs, void* stream) {
+  if ((gs != 0 && gs != 1) || G <= 0 || (long)(Kq / gkp) * gk < K)
+    return (int)cudaErrorInvalidValue;
+  const PArgs q = prologue_args(x, s_a, s_b, g, ps, bv, sh, sc, sh_rs, sc_rs,
+                                codes_a, codes_b, M, K, Kq, half, gk, gkp,
+                                gs, G);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(mrq ? launch_prologue<true>(q, x_bf16, nm_bf16, s)
+                   : launch_prologue<false>(q, x_bf16, nm_bf16, s));
+}
+
+namespace {
+__global__ void div_probe_kernel(const float* a, const float* b, float* q,
+                                 float* r, long n) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float y = __frcp_rn(b[i]);
+  q[i] = div_rn(a[i], b[i], y, __fmul_rn(a[i], y));
+  r[i] = rint_div(a[i], b[i], y);
+}
+}  // namespace
+
+// q[i] = a[i] / b[i] by the shared correctly rounded quotient (div_rn)
+// and r[i] = rint_div(a[i], b[i]), the prologue pass's rounded quotient:
+// for tests/test_torch_cuda.py, which holds them against torch's division.
+extern "C" int prologue_div_probe(const void* a, const void* b, void* q,
+                                  void* r, long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  div_probe_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(q), static_cast<float*>(r), n);
+  return (int)cudaGetLastError();
 }
 
 // B11 (repro/kernels/int8_matmul.py::int8_matmul): the caller's codes,

@@ -85,22 +85,27 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "int8_fused": {
         # map wt | N Kp
         "int8_weight_map": [_P] * 2 + [_I] * 2,
-        # x wmap s_a s_b scale_a scale_b corr bias g ps bv mu rsig sh sc
-        # gate res out codes_a codes_b ws | M K Kp N half x_bf16 res_bf16
-        # out_bf16 mrq gs G ks | stream
-        "int8_matmul_launch": [_P] * 21 + [_I] * 12 + [_P],
+        # x wmap s_a s_b scale_a scale_b corr bias g ps bv sh sc gate res
+        # out codes_a codes_b ws | M K Kp N half x_bf16 nm_bf16 res_bf16
+        # out_bf16 mrq gs G ks | sh_rs sc_rs (long) | stream
+        "int8_matmul_launch": [_P] * 19 + [_I] * 13 + [_L] * 2 + [_P],
+        # x s_a s_b g ps bv sh sc codes_a codes_b | M K Kq half gk gkp
+        # x_bf16 nm_bf16 mrq gs G | sh_rs sc_rs (long) | stream
+        "prologue_codes_launch": [_P] * 10 + [_I] * 11 + [_L] * 2 + [_P],
+        # a b q r | n (long) | stream
+        "prologue_div_probe": [_P] * 4 + [_L] + [_P],
         # xq wmap scale corr bias g out ws | M Kp N out_bf16 ks | stream
         "int8_gemm_codes_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
     "int4_packed": {
-        # as int8_matmul_launch | M K Kq N gk gkp nk x_bf16 res_bf16
-        # out_bf16 mrq gs G | stream
-        "int4_matmul_launch": [_P] * 20 + [_I] * 13 + [_P],
+        # as int8_matmul_launch without ws | M K Kq N gk gkp nk x_bf16
+        # nm_bf16 res_bf16 out_bf16 mrq gs G | sh_rs sc_rs (long) | stream
+        "int4_matmul_launch": [_P] * 18 + [_I] * 14 + [_L] * 2 + [_P],
     },
     "flash_attn_mrq": {
         # q k v s_q s_k qk_scale s1 s_v scale1 scale2 g_qk g_pv mask out

@@ -84,7 +84,7 @@ def _weight_layout(wp, group_k: int):
 
 
 def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
-            stats, nm, gr, bv, group_k, out_dtype):
+            nm, gr, bv, group_k, out_dtype):
     M, K = x.shape
     Kp, N = 2 * wp.shape[0], wp.shape[1]
     if group_k <= 0 or group_k % 2 or Kp % group_k or Kp // group_k != \
@@ -94,9 +94,9 @@ def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     nk = Kp // group_k
     dev = x.device
     _need(wp, "wp", (torch.int8,), (Kp // 2, N), dev)
-    mu, rsig, sh, sc, gate, res = check_operands(
+    sh, sc, gate, res, sh_rs, sc_rs, nm_bf16 = check_operands(
         x, (scale_a.shape[0], nk, N), s_a, s_b, scale_a, scale_b, corr, bias,
-        g, ps, stats, nm, gr, bv, out_dtype)
+        g, ps, nm, gr, bv, out_dtype)
     gkp = _padded_group(group_k)
     wt = _weight_layout(wp, group_k)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -106,12 +106,12 @@ def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     err = build.lib("int4_packed").int4_matmul_launch(
         x.data_ptr(), wt.data_ptr(), s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
-        gptr, _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
-        _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
-        codes[0].data_ptr(), codes[-1].data_ptr(), M, K, nk * gkp, N,
-        group_k, gkp, nk, _DT[x.dtype],
-        _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
-        gs, scale_a.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+        gptr, _ptr(ps), _ptr(bv), _ptr(sh), _ptr(sc), _ptr(gate),
+        _ptr(res), out.data_ptr(), codes[0].data_ptr(),
+        codes[-1].data_ptr(), M, K, nk * gkp, N, group_k, gkp, nk,
+        _DT[x.dtype], nm_bf16, _DT[res.dtype] if res is not None else 0,
+        _DT[out_dtype], int(mrq), gs, scale_a.shape[0], sh_rs, sc_rs,
+        torch.cuda.current_stream(dev).cuda_stream)
     name = ("int4_matmul_mrq_fq" if mrq else "int4_matmul_fq") + \
         ("_vec" if gs else "")
     build.check(err, "int4_packed", name)
@@ -120,24 +120,22 @@ def _launch(mrq, x, wp, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
 
 
 def int4_matmul_fq_plain(x, wp, sx, zx, scale, corr, bias=None, g=0, *,
-                         ps=None, stats=None, nm=None, gr=None, bv=None,
+                         ps=None, nm=None, gr=None, bv=None,
                          group_k=256, out_dtype=torch.float32):
-    """Plain version of B4: ``ref.int4_matmul_fq_fused_ref`` with the
-    wrapper's layernorm stats."""
+    """Plain version of B4: ``ref.int4_matmul_fq_fused_ref``."""
     return ref.int4_matmul_fq_fused_ref(
         x, wp, sx, zx, scale, corr, bias=bias, g=g, ps=ps, nm=nm, gr=gr,
-        bv=bv, group_k=group_k, out_dtype=out_dtype, stats=stats)
+        bv=bv, group_k=group_k, out_dtype=out_dtype)
 
 
 def int4_matmul_mrq_fq_plain(x, wp, s_neg, s_pos, scale_neg, scale_pos,
-                             bias=None, g=0, *, ps=None, stats=None, nm=None,
+                             bias=None, g=0, *, ps=None, nm=None,
                              gr=None, bv=None, group_k=256,
                              out_dtype=torch.float32):
     """Plain version of B5."""
     return ref.int4_matmul_mrq_fq_fused_ref(
         x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=bias, g=g, ps=ps,
-        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype,
-        stats=stats)
+        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype)
 
 
 def int4_matmul_fq(x, wp, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
@@ -145,12 +143,12 @@ def int4_matmul_fq(x, wp, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
                    out_dtype=torch.float32):
     """B4 (see the module docstring). CUDA tensors launch the kernel, CPU
     tensors take the plain version."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    bias, gr = prep(x, gr, bias, wp.shape[1])
     if _k.use_kernel(x):
         return _launch(False, x.contiguous(), wp, sx, zx, scale, None, corr,
-                       bias, g, ps, stats, nm, gr, bv, group_k, out_dtype)
+                       bias, g, ps, nm, gr, bv, group_k, out_dtype)
     return int4_matmul_fq_plain(x, wp, sx, zx, scale, corr, bias, g, ps=ps,
-                                stats=stats, nm=nm, gr=gr, bv=bv,
+                                nm=nm, gr=gr, bv=bv,
                                 group_k=group_k, out_dtype=out_dtype)
 
 
@@ -158,38 +156,37 @@ def int4_matmul_mrq_fq(x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=None,
                        g=0, *, ps=None, nm=None, gr=None, bv=None,
                        group_k=256, out_dtype=torch.float32):
     """B5 (see the module docstring)."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    bias, gr = prep(x, gr, bias, wp.shape[1])
     if _k.use_kernel(x):
         return _launch(True, x.contiguous(), wp, s_neg, s_pos, scale_neg,
-                       scale_pos, None, bias, g, ps, stats, nm, gr, bv,
+                       scale_pos, None, bias, g, ps, nm, gr, bv,
                        group_k, out_dtype)
     return int4_matmul_mrq_fq_plain(
         x, wp, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
-        stats=stats, nm=nm, gr=gr, bv=bv, group_k=group_k,
+        nm=nm, gr=gr, bv=bv, group_k=group_k,
         out_dtype=out_dtype)
 
 
 def int4_matmul_fq_vec_plain(x, wp, sx, zx, scale, corr, bias=None,
-                             gv=None, *, ps=None, stats=None, nm=None,
+                             gv=None, *, ps=None, nm=None,
                              gr=None, bv=None, group_k=256,
                              out_dtype=torch.float32):
     """Plain version of B7a: ``ref.int4_matmul_fq_vec_fused_ref``."""
     return ref.int4_matmul_fq_vec_fused_ref(
         x, wp, sx, zx, scale, corr, bias=bias,
         gv=clamp_groups(gv, scale.shape[0]), ps=ps, nm=nm, gr=gr, bv=bv,
-        group_k=group_k, out_dtype=out_dtype, stats=stats)
+        group_k=group_k, out_dtype=out_dtype)
 
 
 def int4_matmul_mrq_fq_vec_plain(x, wp, s_neg, s_pos, scale_neg, scale_pos,
-                                 bias=None, gv=None, *, ps=None, stats=None,
-                                 nm=None, gr=None, bv=None, group_k=256,
+                                 bias=None, gv=None, *, ps=None, nm=None,
+                                 gr=None, bv=None, group_k=256,
                                  out_dtype=torch.float32):
     """Plain version of B7b."""
     return ref.int4_matmul_mrq_fq_vec_fused_ref(
         x, wp, s_neg, s_pos, scale_neg, scale_pos, bias=bias,
         gv=clamp_groups(gv, scale_neg.shape[0]), ps=ps,
-        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype,
-        stats=stats)
+        nm=nm, gr=gr, bv=bv, group_k=group_k, out_dtype=out_dtype)
 
 
 def int4_matmul_fq_vec(x, wp, sx, zx, scale, corr, bias=None, gv=None, *,
@@ -197,13 +194,13 @@ def int4_matmul_fq_vec(x, wp, sx, zx, scale, corr, bias=None, gv=None, *,
                        out_dtype=torch.float32):
     """B7a: B4 with a per-row (M,) int32 group vector ``gv``. CUDA tensors
     launch the kernel, CPU tensors take the plain version."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    bias, gr = prep(x, gr, bias, wp.shape[1])
     gv = row_groups(gv, x.shape[0], x.device)
     if _k.use_kernel(x):
         return _launch(False, x.contiguous(), wp, sx, zx, scale, None, corr,
-                       bias, gv, ps, stats, nm, gr, bv, group_k, out_dtype)
+                       bias, gv, ps, nm, gr, bv, group_k, out_dtype)
     return int4_matmul_fq_vec_plain(x, wp, sx, zx, scale, corr, bias, gv,
-                                    ps=ps, stats=stats, nm=nm, gr=gr, bv=bv,
+                                    ps=ps, nm=nm, gr=gr, bv=bv,
                                     group_k=group_k, out_dtype=out_dtype)
 
 
@@ -211,13 +208,13 @@ def int4_matmul_mrq_fq_vec(x, wp, s_neg, s_pos, scale_neg, scale_pos,
                            bias=None, gv=None, *, ps=None, nm=None, gr=None,
                            bv=None, group_k=256, out_dtype=torch.float32):
     """B7b: B5 with a per-row group vector ``gv``."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wp.shape[1])
+    bias, gr = prep(x, gr, bias, wp.shape[1])
     gv = row_groups(gv, x.shape[0], x.device)
     if _k.use_kernel(x):
         return _launch(True, x.contiguous(), wp, s_neg, s_pos, scale_neg,
-                       scale_pos, None, bias, gv, ps, stats, nm, gr, bv,
+                       scale_pos, None, bias, gv, ps, nm, gr, bv,
                        group_k, out_dtype)
     return int4_matmul_mrq_fq_vec_plain(
         x, wp, s_neg, s_pos, scale_neg, scale_pos, bias, gv, ps=ps,
-        stats=stats, nm=nm, gr=gr, bv=bv, group_k=group_k,
+        nm=nm, gr=gr, bv=bv, group_k=group_k,
         out_dtype=out_dtype)

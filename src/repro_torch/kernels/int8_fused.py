@@ -13,12 +13,15 @@ Computes (B1) ``y = ((clip(rint(x'/sx[g]) + zx[g] - half, -half, half-1)
 ``accn*scale_neg[g] + accp*scale_pos[g] + bias``, with the optional
 prologue ``x' = ((x - mu) * rsig) * (1 + sc[b]) + sh[b]`` then ``/ ps`` and
 the optional epilogue ``res + gate[b] * y``. The layernorm row stats
-(mu, rsig) are computed here, once, in torch (``ref.layernorm_stats``),
-and handed to kernel and plain version alike.
+(mu, rsig) are computed inside the kernel's prologue pass
+(``csrc/prologue.cuh``); the plain version replays their summation order
+(``ref.layernorm_stats``).
 
 Shapes: x (M, K) f32/bf16; wq (K, N) int8; sx/zx (G, 1) f32; scale (G, N)
-f32; corr (G, N) int32; bias (N,); ps (K,); nm = (shift, scale) (B, K);
-gr = (gate (B, N), residual (M, N)); bv (M,) int32 row -> batch map.
+f32; corr (G, N) int32; bias (N,); ps (K,); nm = (shift, scale) (B, K)
+f32 or bf16, read at their row stride (the chunk views of the adaLN
+output, no copy); gr = (gate (B, N), residual (M, N)); bv (M,) int32
+row -> batch map.
 
 The ``_vec`` forms take ``gv``, an (M,) int32 device tensor, instead of
 the scalar ``g``: row i runs with group gv[i] (the slot pool's rows sit
@@ -188,13 +191,32 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def mod_rows(nm, K: int, dev):
+    """The kernel's view of the adaLN modulation rows ``nm = (shift,
+    scale)``, each (B, K): (shift, scale, shift's row stride, scale's row
+    stride, 1 if bf16), in their own dtype where both share one (f32 or
+    bf16) and their columns are unit-stride, else as f32 copies."""
+    sh, sc = nm
+    for name, t in (("shift", sh), ("scale", sc)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, expected {dev}")
+        if t.ndim != 2 or t.shape[1] != K or t.shape[0] != sh.shape[0]:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, expected "
+                             f"({sh.shape[0]}, {K})")
+    if sh.dtype != sc.dtype or sh.dtype not in _DT:
+        sh, sc = sh.float(), sc.float()
+    sh, sc = (t if t.stride(1) == 1 else t.contiguous() for t in (sh, sc))
+    return sh, sc, sh.stride(0), sc.stride(0), _DT[sh.dtype]
+
+
 def check_operands(x, scale_shape, s_a, s_b, scale_a, scale_b, corr, bias,
-                   g, ps, stats, nm, gr, bv, out_dtype):
+                   g, ps, nm, gr, bv, out_dtype):
     """Validate what every fused linear takes besides its weights: x, the
     (G, 1) activation steps, the scale (and corr) stacks of
     ``scale_shape`` = (G, ..., N), bias, the group and the optional
-    fusions. Returns the fusion tensors in the launchers' order (mu, rsig,
-    shift, scale, gate, residual; None where a fusion is off)."""
+    fusions. Returns the fusion operands in the launchers' order (shift,
+    scale, gate, residual: None where a fusion is off; then the
+    modulation rows' strides and bf16 flag, ``mod_rows``)."""
     M, K = x.shape
     G, N = scale_shape[0], scale_shape[-1]
     dev = x.device
@@ -214,32 +236,30 @@ def check_operands(x, scale_shape, s_a, s_b, scale_a, scale_b, corr, bias,
         raise ValueError(f"group {g} outside [0, {G})")
     if out_dtype not in _DT:
         raise ValueError(f"out_dtype {out_dtype} not supported")
-    mu = rsig = sh = sc = gate = res = None
+    sh = sc = gate = res = None
+    sh_rs = sc_rs = nm_bf16 = 0
     if ps is not None:
         _need(ps, "ps", f32, (K,), dev)
     if nm is not None or gr is not None:
         _need(bv, "bv", i32, (M,), dev)
     if nm is not None:
-        mu, rsig = (s.reshape(M) for s in stats)
-        sh, sc = nm
-        _need(sh, "shift", f32, (sh.shape[0], K), dev)
-        _need(sc, "scale", f32, sh.shape, dev)
+        sh, sc, sh_rs, sc_rs, nm_bf16 = mod_rows(nm, K, dev)
     if gr is not None:
         gate, res = gr
         _need(gate, "gate", f32, (gate.shape[0], N), dev)
         _need(res, "residual", tuple(_DT), (M, N), dev)
-    return mu, rsig, sh, sc, gate, res
+    return sh, sc, gate, res, sh_rs, sc_rs, nm_bf16
 
 
 def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
-            stats, nm, gr, bv, bits, out_dtype):
+            nm, gr, bv, bits, out_dtype):
     M, K = x.shape
     N = wq.shape[1]
     dev = x.device
     _need(wq, "wq", (torch.int8,), (K, N), dev)
-    mu, rsig, sh, sc, gate, res = check_operands(
+    sh, sc, gate, res, sh_rs, sc_rs, nm_bf16 = check_operands(
         x, (scale_a.shape[0], N), s_a, s_b, scale_a, scale_b, corr, bias, g,
-        ps, stats, nm, gr, bv, out_dtype)
+        ps, nm, gr, bv, out_dtype)
     Kp = -_KPAD * (-K // _KPAD)
     wmap = weight_map(wq, Kp)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -251,12 +271,12 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     err = so.int8_matmul_launch(
         x.data_ptr(), wmap, s_a.data_ptr(), s_b.data_ptr(),
         scale_a.data_ptr(), _ptr(scale_b), _ptr(corr), bias.data_ptr(),
-        gptr, _ptr(ps), _ptr(bv), _ptr(mu), _ptr(rsig),
-        _ptr(sh), _ptr(sc), _ptr(gate), _ptr(res), out.data_ptr(),
-        codes[0].data_ptr(), codes[-1].data_ptr(), ws, M, K, Kp, N,
-        2 ** (bits - 1), _DT[x.dtype],
-        _DT[res.dtype] if res is not None else 0, _DT[out_dtype], int(mrq),
-        gs, scale_a.shape[0], ks, stream)
+        gptr, _ptr(ps), _ptr(bv), _ptr(sh), _ptr(sc), _ptr(gate),
+        _ptr(res), out.data_ptr(), codes[0].data_ptr(),
+        codes[-1].data_ptr(), ws, M, K, Kp, N, 2 ** (bits - 1),
+        _DT[x.dtype], nm_bf16, _DT[res.dtype] if res is not None else 0,
+        _DT[out_dtype], int(mrq), gs, scale_a.shape[0], ks, sh_rs, sc_rs,
+        stream)
     name = ("int8_matmul_mrq_fq" if mrq else "int8_matmul_fq") + \
         ("_vec" if gs else "")
     build.check(err, "int8_fused", name)
@@ -264,36 +284,35 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     return out
 
 
-def prep(x, nm, gr, bias, N):
-    stats = ref.layernorm_stats(x) if nm is not None else None
+def prep(x, gr, bias, N):
+    """(bias, gr) as the launchers take them: an f32 bias (zeros where
+    None; ``ops`` hands the serving path's cached f32 copy), the gate in
+    f32 and both contiguous."""
     if bias is None:
         bias = torch.zeros((N,), dtype=torch.float32, device=x.device)
     if gr is not None:
         gate, res = gr
         gr = (gate.float().contiguous(), res.contiguous())
-    if nm is not None:
-        nm = tuple(t.float().contiguous() for t in nm)
-    return stats, bias.float().contiguous(), nm, gr
+    return bias.float().contiguous(), gr
 
 
 def int8_matmul_fq_plain(x, wq, sx, zx, scale, corr, bias=None, g=0, *,
-                         ps=None, stats=None, nm=None, gr=None, bv=None,
+                         ps=None, nm=None, gr=None, bv=None,
                          bits=8, out_dtype=torch.float32):
-    """Plain version of B1: ``ref.int8_matmul_fq_fused_ref`` with the
-    wrapper's layernorm stats."""
+    """Plain version of B1: ``ref.int8_matmul_fq_fused_ref``."""
     return ref.int8_matmul_fq_fused_ref(
         x, wq, sx, zx, scale, corr, bias=bias, g=g, ps=ps, nm=nm, gr=gr,
-        bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+        bv=bv, bits=bits, out_dtype=out_dtype)
 
 
 def int8_matmul_mrq_fq_plain(x, wq, s_neg, s_pos, scale_neg, scale_pos,
-                             bias=None, g=0, *, ps=None, stats=None, nm=None,
+                             bias=None, g=0, *, ps=None, nm=None,
                              gr=None, bv=None, bits=8,
                              out_dtype=torch.float32):
     """Plain version of B2."""
     return ref.int8_matmul_mrq_fq_fused_ref(
         x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=bias, g=g, ps=ps,
-        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
 
 
 def int8_matmul_fq(x, wq, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
@@ -301,12 +320,12 @@ def int8_matmul_fq(x, wq, sx, zx, scale, corr, bias=None, g=0, *, ps=None,
                    out_dtype=torch.float32):
     """B1 (see the module docstring). CUDA tensors launch the kernel, CPU
     tensors take the plain version."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    bias, gr = prep(x, gr, bias, wq.shape[1])
     if _k.use_kernel(x):
         return _launch(False, x.contiguous(), wq, sx, zx, scale, None, corr,
-                       bias, g, ps, stats, nm, gr, bv, bits, out_dtype)
+                       bias, g, ps, nm, gr, bv, bits, out_dtype)
     return int8_matmul_fq_plain(x, wq, sx, zx, scale, corr, bias, g, ps=ps,
-                                stats=stats, nm=nm, gr=gr, bv=bv, bits=bits,
+                                nm=nm, gr=gr, bv=bv, bits=bits,
                                 out_dtype=out_dtype)
 
 
@@ -314,36 +333,36 @@ def int8_matmul_mrq_fq(x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=None,
                        g=0, *, ps=None, nm=None, gr=None, bv=None, bits=8,
                        out_dtype=torch.float32):
     """B2 (see the module docstring)."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    bias, gr = prep(x, gr, bias, wq.shape[1])
     if _k.use_kernel(x):
         return _launch(True, x.contiguous(), wq, s_neg, s_pos, scale_neg,
-                       scale_pos, None, bias, g, ps, stats, nm, gr, bv,
+                       scale_pos, None, bias, g, ps, nm, gr, bv,
                        bits, out_dtype)
     return int8_matmul_mrq_fq_plain(
         x, wq, s_neg, s_pos, scale_neg, scale_pos, bias, g, ps=ps,
-        stats=stats, nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
 
 
 def int8_matmul_fq_vec_plain(x, wq, sx, zx, scale, corr, bias=None,
-                             gv=None, *, ps=None, stats=None, nm=None,
+                             gv=None, *, ps=None, nm=None,
                              gr=None, bv=None, bits=8,
                              out_dtype=torch.float32):
     """Plain version of B6a: ``ref.int8_matmul_fq_vec_fused_ref``."""
     return ref.int8_matmul_fq_vec_fused_ref(
         x, wq, sx, zx, scale, corr, bias=bias,
         gv=clamp_groups(gv, scale.shape[0]), ps=ps, nm=nm, gr=gr,
-        bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+        bv=bv, bits=bits, out_dtype=out_dtype)
 
 
 def int8_matmul_mrq_fq_vec_plain(x, wq, s_neg, s_pos, scale_neg, scale_pos,
-                                 bias=None, gv=None, *, ps=None, stats=None,
-                                 nm=None, gr=None, bv=None, bits=8,
+                                 bias=None, gv=None, *, ps=None, nm=None,
+                                 gr=None, bv=None, bits=8,
                                  out_dtype=torch.float32):
     """Plain version of B6b."""
     return ref.int8_matmul_mrq_fq_vec_fused_ref(
         x, wq, s_neg, s_pos, scale_neg, scale_pos, bias=bias,
         gv=clamp_groups(gv, scale_neg.shape[0]), ps=ps,
-        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype, stats=stats)
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
 
 
 def int8_matmul_fq_vec(x, wq, sx, zx, scale, corr, bias=None, gv=None, *,
@@ -352,13 +371,13 @@ def int8_matmul_fq_vec(x, wq, sx, zx, scale, corr, bias=None, gv=None, *,
     """B6a: B1 with a per-row (M,) int32 group vector ``gv`` (see the
     module docstring). CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    bias, gr = prep(x, gr, bias, wq.shape[1])
     gv = row_groups(gv, x.shape[0], x.device)
     if _k.use_kernel(x):
         return _launch(False, x.contiguous(), wq, sx, zx, scale, None, corr,
-                       bias, gv, ps, stats, nm, gr, bv, bits, out_dtype)
+                       bias, gv, ps, nm, gr, bv, bits, out_dtype)
     return int8_matmul_fq_vec_plain(x, wq, sx, zx, scale, corr, bias, gv,
-                                    ps=ps, stats=stats, nm=nm, gr=gr, bv=bv,
+                                    ps=ps, nm=nm, gr=gr, bv=bv,
                                     bits=bits, out_dtype=out_dtype)
 
 
@@ -366,12 +385,12 @@ def int8_matmul_mrq_fq_vec(x, wq, s_neg, s_pos, scale_neg, scale_pos,
                            bias=None, gv=None, *, ps=None, nm=None, gr=None,
                            bv=None, bits=8, out_dtype=torch.float32):
     """B6b: B2 with a per-row group vector ``gv``."""
-    stats, bias, nm, gr = prep(x, nm, gr, bias, wq.shape[1])
+    bias, gr = prep(x, gr, bias, wq.shape[1])
     gv = row_groups(gv, x.shape[0], x.device)
     if _k.use_kernel(x):
         return _launch(True, x.contiguous(), wq, s_neg, s_pos, scale_neg,
-                       scale_pos, None, bias, gv, ps, stats, nm, gr, bv,
+                       scale_pos, None, bias, gv, ps, nm, gr, bv,
                        bits, out_dtype)
     return int8_matmul_mrq_fq_vec_plain(
         x, wq, s_neg, s_pos, scale_neg, scale_pos, bias, gv, ps=ps,
-        stats=stats, nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)
+        nm=nm, gr=gr, bv=bv, bits=bits, out_dtype=out_dtype)

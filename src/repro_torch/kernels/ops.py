@@ -50,7 +50,7 @@ from repro_torch.kernels.int8_bmm import (
 )
 from repro_torch.kernels.int8_fused import (
     int8_matmul_fq, int8_matmul_fq_vec, int8_matmul_mrq_fq,
-    int8_matmul_mrq_fq_vec, cached_layout, is_vec,
+    int8_matmul_mrq_fq_vec, _CACHE, cached_layout, is_vec,
 )
 from repro_torch.kernels.ref import NEG_INF, _ceil, pack_int4
 from repro_torch.kernels.softmax_mrq import (
@@ -384,9 +384,24 @@ def _as_vec(g, n: int, device):
 
 def _repeat_rows(n: int, B: int, device):
     """(n,) int32 row -> batch map for batch-major rows, n // B rows per
-    batch (expand + reshape, no host read)."""
-    return torch.arange(B, dtype=torch.int32, device=device)[:, None] \
-        .expand(B, n // B).reshape(n)
+    batch: built once per (n, B, device) and kept beside ``group_ptr``'s
+    index table (no launch and no host read per linear)."""
+    key = ("rows", n, B, str(device))
+    rows = _CACHE.get(key)
+    if rows is None:
+        rows = _CACHE[key] = torch.arange(
+            B, dtype=torch.int32, device=device)[:, None] \
+            .expand(B, n // B).reshape(n).contiguous()
+    return rows
+
+
+def _f32(bias):
+    """The bias in f32: itself where it is already f32 and contiguous,
+    else an f32 copy made once per bias tensor and freed with it
+    (``cached_layout``), not one cast per call."""
+    if bias is None or (bias.dtype == torch.float32 and bias.is_contiguous()):
+        return bias
+    return cached_layout(bias, "f32", lambda b: b.float().contiguous())
 
 
 def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
@@ -407,7 +422,7 @@ def _fusion_kwargs(pack: dict, xm, norm_mod, gate_residual) -> dict:
             f"fusion rows: {n_rows} matmul rows not divisible by batch {B}")
     kw["bv"] = _repeat_rows(n_rows, B, xm.device)
     if norm_mod is not None:
-        kw["nm"] = tuple(t.float() for t in norm_mod)
+        kw["nm"] = tuple(norm_mod)        # read in place by the kernel
     if gate_residual is not None:
         gate, res = gate_residual
         kw["gr"] = (gate.float(), res.reshape(-1, res.shape[-1]))
@@ -422,7 +437,7 @@ def _linear(kern, kern_vec, wkey, x, pack, bias, out_dtype, tgroup,
     shape = x.shape
     xm = x.reshape(-1, shape[-1])
     g = _groups(pack, tgroup, xm.shape[0])
-    kw = dict(bias=None if bias is None else bias.float(),
+    kw = dict(bias=_f32(bias),
               out_dtype=out_dtype, **width,
               **_fusion_kwargs(pack, xm, norm_mod, gate_residual))
     args = (xm, pack[wkey]) + tuple(pack[k] for k in params)

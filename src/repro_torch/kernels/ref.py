@@ -14,9 +14,10 @@ op, so nothing contracts into an FMA). Integer products are exact:
 int32 ``torch.matmul`` on the CPU, float64 on the GPU (|sum| stays far
 below 2^53 at every serving shape).
 
-The kernel modules' ``*_plain`` functions are these oracles with the
-wrapper's layernorm statistics injected (``stats=``), so a kernel and its
-plain version see identical prologue inputs.
+The kernel modules' ``*_plain`` functions are these oracles; the
+layernorm statistics of the norm-modulate prologue are summed in the
+prologue pass's order (``layernorm_stats``), so a kernel and its plain
+version see identical prologue values.
 """
 from __future__ import annotations
 
@@ -39,9 +40,11 @@ TOLERANCES = {
     "B1_vs_plain": (0.0, "integer-exact codes and s32 sums; each prologue "
                     "and epilogue step rounds once in both (IEEE divide, "
                     "no FMA contraction: -fmad=false / __f*_rn)"),
-    "B1_norm_mod_vs_plain": (0.0, "layernorm stats are computed once in "
-                             "torch by the wrapper and shared by kernel "
-                             "and plain version"),
+    "B1_norm_mod_vs_plain": (0.0, "the prologue pass computes the "
+                             "layernorm stats itself and the plain version "
+                             "replays its order (chunk_rowsum for the sums, "
+                             "IEEE divides by K, a correctly rounded sqrt "
+                             "and reciprocal)"),
     "B2_vs_plain": (0.0, "as B1: disjoint sign-split codes, two exact s32 "
                     "accumulators, per-step rounding in the epilogue"),
     "B4_vs_plain": (0.0, "as B1, and each K group's s32 partial is "
@@ -317,23 +320,53 @@ def int4_matmul_mrq_fq_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
     return acc.to(out_dtype)
 
 
+def chunk_rowsum(e):
+    """Row sums of (..., K) in the prologue pass's order
+    (``csrc/prologue.cuh``, ``prologue_rows_kernel``): the row is cut into
+    chunks of 16 columns (the last zero-padded); lane t of a warp adds
+    chunks t, t + 32, ... in ascending order, each chunk's columns in
+    order, starting from 0; then five butterfly steps ``p[t] + p[t ^ o]``,
+    o = 16, 8, 4, 2, 1, add the lanes' partials, as ``warp_rowsum``."""
+    K = e.shape[-1]
+    J = -(-K // 512)
+    t = torch.nn.functional.pad(e, (0, 512 * J - K))
+    t = t.reshape(e.shape[:-1] + (J, 32, 16))
+    p = torch.zeros(e.shape[:-1] + (32,), dtype=e.dtype, device=e.device)
+    for j in range(J):
+        for i in range(16):
+            p = p + t[..., j, :, i]
+    lanes = torch.arange(32, device=e.device)
+    for o in (16, 8, 4, 2, 1):
+        p = p + p[..., lanes ^ o]
+    return p[..., :1]
+
+
 def layernorm_stats(x, eps: float = 1e-6):
-    """(mu, rsig) per row of x in f32 — the wrapper's prologue stats
-    (mean, biased variance as the mean of squared deviations, rsqrt)."""
+    """(mu, rsig) per row of x in f32, as the prologue pass computes them:
+    mean and biased variance (the mean of squared deviations) each summed
+    in the pass's order (``chunk_rowsum``) and divided by K; rsig = 1 /
+    sqrt(var + eps) with the root and the reciprocal each correctly
+    rounded (not an rsqrt)."""
     xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return mu, torch.rsqrt(var + eps)
+    K = xf.shape[-1]
+    # the divides and the root in f64, each rounded to f32 once: exactly
+    # the correctly rounded f32 results (f64 carries more than twice f32's
+    # digits). torch's own f32 sqrt on the CPU is not always correctly
+    # rounded, and it may divide by a Python scalar through its reciprocal.
+    mu = (chunk_rowsum(xf).double() / K).float()
+    d = xf - mu
+    var = (chunk_rowsum(d * d).double() / K).float()
+    root = torch.sqrt((var + eps).double()).float()
+    return mu, (1.0 / root.double()).float()
 
 
-def fused_prologue_ref(x, nm=None, ps=None, bv=None, eps: float = 1e-6,
-                       stats=None):
+def fused_prologue_ref(x, nm=None, ps=None, bv=None, eps: float = 1e-6):
     """Layernorm -> adaLN modulate (per-batch rows gathered by ``bv``) ->
     channel-balance divide, as the kernels' prologue computes it."""
     x = x.float()
     if nm is not None:
         sh, sc = nm
-        mu, rsig = stats if stats is not None else layernorm_stats(x, eps)
+        mu, rsig = layernorm_stats(x, eps)
         x = (x - mu) * rsig
         x = x * (1.0 + sc.float()[bv]) + sh.float()[bv]
     if ps is not None:
@@ -351,9 +384,8 @@ def fused_epilogue_ref(y, gr=None, bv=None):
 
 def int8_matmul_fq_fused_ref(x, wq, sx, zx, scale, corr, bias=None, g=0,
                              ps=None, nm=None, gr=None, bv=None,
-                             bits: int = 8, out_dtype=torch.float32,
-                             stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                             bits: int = 8, out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int8_matmul_fq_ref(xf, wq, sx, zx, scale, corr, bias=bias, g=g,
                            bits=bits)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -362,8 +394,8 @@ def int8_matmul_fq_fused_ref(x, wq, sx, zx, scale, corr, bias=None, g=0,
 def int8_matmul_mrq_fq_fused_ref(x, wq, s_neg, s_pos, scale_neg, scale_pos,
                                  bias=None, g=0, ps=None, nm=None, gr=None,
                                  bv=None, bits: int = 8,
-                                 out_dtype=torch.float32, stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                 out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int8_matmul_mrq_fq_ref(xf, wq, s_neg, s_pos, scale_neg, scale_pos,
                                bias=bias, g=g, bits=bits)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -371,9 +403,8 @@ def int8_matmul_mrq_fq_fused_ref(x, wq, s_neg, s_pos, scale_neg, scale_pos,
 
 def int4_matmul_fq_fused_ref(x, wp, sx, zx, scale, corr, bias=None, g=0,
                              ps=None, nm=None, gr=None, bv=None,
-                             group_k: int = 256, out_dtype=torch.float32,
-                             stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                             group_k: int = 256, out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int4_matmul_fq_ref(xf, wp, sx, zx, scale, corr, bias=bias, g=g,
                            group_k=group_k)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -382,8 +413,8 @@ def int4_matmul_fq_fused_ref(x, wp, sx, zx, scale, corr, bias=None, g=0,
 def int4_matmul_mrq_fq_fused_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
                                  bias=None, g=0, ps=None, nm=None, gr=None,
                                  bv=None, group_k: int = 256,
-                                 out_dtype=torch.float32, stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                 out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int4_matmul_mrq_fq_ref(xf, wp, s_neg, s_pos, scale_neg, scale_pos,
                                bias=bias, g=g, group_k=group_k)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -744,9 +775,8 @@ def int4_matmul_mrq_fq_vec_ref(x, wp, s_neg, s_pos, scale_neg, scale_pos,
 
 def int8_matmul_fq_vec_fused_ref(x, wq, sx, zx, scale, corr, bias=None,
                                  gv=None, ps=None, nm=None, gr=None, bv=None,
-                                 bits: int = 8, out_dtype=torch.float32,
-                                 stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                 bits: int = 8, out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int8_matmul_fq_vec_ref(xf, wq, sx, zx, scale, corr, bias=bias,
                                gv=gv, bits=bits)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -755,9 +785,8 @@ def int8_matmul_fq_vec_fused_ref(x, wq, sx, zx, scale, corr, bias=None,
 def int8_matmul_mrq_fq_vec_fused_ref(x, wq, s_neg, s_pos, scale_neg,
                                      scale_pos, bias=None, gv=None, ps=None,
                                      nm=None, gr=None, bv=None,
-                                     bits: int = 8, out_dtype=torch.float32,
-                                     stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                     bits: int = 8, out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int8_matmul_mrq_fq_vec_ref(xf, wq, s_neg, s_pos, scale_neg,
                                    scale_pos, bias=bias, gv=gv, bits=bits)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -765,9 +794,8 @@ def int8_matmul_mrq_fq_vec_fused_ref(x, wq, s_neg, s_pos, scale_neg,
 
 def int4_matmul_fq_vec_fused_ref(x, wp, sx, zx, scale, corr, bias=None,
                                  gv=None, ps=None, nm=None, gr=None, bv=None,
-                                 group_k: int = 256, out_dtype=torch.float32,
-                                 stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                 group_k: int = 256, out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int4_matmul_fq_vec_ref(xf, wp, sx, zx, scale, corr, bias=bias,
                                gv=gv, group_k=group_k)
     return fused_epilogue_ref(y, gr=gr, bv=bv).to(out_dtype)
@@ -777,8 +805,8 @@ def int4_matmul_mrq_fq_vec_fused_ref(x, wp, s_neg, s_pos, scale_neg,
                                      scale_pos, bias=None, gv=None, ps=None,
                                      nm=None, gr=None, bv=None,
                                      group_k: int = 256,
-                                     out_dtype=torch.float32, stats=None):
-    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv, stats=stats)
+                                     out_dtype=torch.float32):
+    xf = fused_prologue_ref(x, nm=nm, ps=ps, bv=bv)
     y = int4_matmul_mrq_fq_vec_ref(xf, wp, s_neg, s_pos, scale_neg,
                                    scale_pos, bias=bias, gv=gv,
                                    group_k=group_k)

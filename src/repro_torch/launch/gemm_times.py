@@ -13,8 +13,11 @@ B7a/B7b: nibble weights from ``ref.pack_int4``, K groups of 256, x_proj's
 16) prints:
 
 - device ms per call: the CUDA kernels' durations summed by
-  ``torch.profiler`` over ``--reps`` calls, split into the quantize pass
-  and the GEMM;
+  ``torch.profiler`` over ``--reps`` calls, split into the prologue pass
+  (``csrc/prologue.cuh``; an older tree's ``quantize_kernel``), the GEMM
+  and anything else (an older tree's torch layernorm statistics and
+  casts), with the pass's own bound beside it (x read once, the code
+  planes written once, the modulation rows and row map);
 - wrapper ms per call: CUDA events around ``--reps`` back-to-back calls
   (the host's checks, allocations and enqueue included: once the
   kernels are fast, the host sets this pace);
@@ -100,11 +103,14 @@ def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8, int4=False):
     nbytes = (M * K * 2 + (K * N // 2 if int4 else K * N)
               + (G if vec else 1) * nk * N * 4 * 2 + N * 4
               + M * N * 2 + (M * 4 if vec else 0))
-    if fusion == "norm_mod":
-        kw.update(nm=(torch.randn(B, K, device=dev, generator=gen) * 0.1,
-                      torch.randn(B, K, device=dev, generator=gen) * 0.1),
-                  bv=bv)
-        nbytes += M * 8 + 2 * B * K * 4 + M * 4
+    Kq = nk * -128 * (-group_k // 128) if int4 else -16 * (-K // 16)
+    pass_bytes = M * K * 2 + (2 if mrq else 1) * M * Kq + (M * 4 if vec
+                                                           else 0)
+    if fusion == "norm_mod":       # shift, scale: chunk views of the adaLN
+        ada = (torch.randn(B, 6 * K, device=dev, generator=gen) * 0.1)
+        kw.update(nm=torch.chunk(ada.to(dt), 6, dim=-1)[:2], bv=bv)
+        nbytes += 2 * B * K * 2 + M * 4
+        pass_bytes += 2 * B * K * 2 + M * 4
     if fusion == "gate_residual":
         kw.update(gr=(torch.randn(B, N, device=dev, generator=gen),
                       torch.randn(M, N, device=dev, generator=gen).to(dt)),
@@ -129,7 +135,7 @@ def make_call(op, M, K, N, fusion, mrq, vec, gen, bits=8, int4=False):
         run = lambda: fn(*args, gv, **kw)
     else:
         run = lambda: fn(*args, g, **kw)
-    return run, nbytes, 2 * M * K * N * (2 if mrq else 1)
+    return run, nbytes, 2 * M * K * N * (2 if mrq else 1), pass_bytes
 
 
 def kernel_name(name: str) -> str:
@@ -173,10 +179,11 @@ def wrapper_ms(run, reps: int) -> float:
 def time_shape(op, M, K, N, fusion, mrq, vec, gen, reps, int4=False):
     """One row: the call's device ms (total, quantize, GEMM), wrapper ms
     and bound."""
-    run, nbytes, ops = make_call(op, M, K, N, fusion, mrq, vec, gen,
-                                 int4=int4)
+    run, nbytes, ops, pass_bytes = make_call(op, M, K, N, fusion, mrq, vec,
+                                             gen, int4=int4)
     dev = device_ms(run, reps)
-    quant = sum(v for k, v in dev.items() if k.startswith("quantize_kernel"))
+    quant = sum(v for k, v in dev.items()
+                if k.startswith(("prologue_", "quantize_kernel")))
     gemm = sum(v for k, v in dev.items() if k.startswith("gemm"))
     row = {"op": op, "M": M, "K": K, "N": N, "fusion": fusion or "plain",
            "kernel": ("int4" if int4 else "int8")
@@ -184,7 +191,8 @@ def time_shape(op, M, K, N, fusion, mrq, vec, gen, reps, int4=False):
            + ("_vec" if vec else ""),
            "device_ms": sum(dev.values()), "quantize_ms": quant,
            "gemm_ms": gemm, "other_ms": sum(dev.values()) - quant - gemm,
-           "wrapper_ms": wrapper_ms(run, reps)}
+           "wrapper_ms": wrapper_ms(run, reps),
+           "quantize_bound_ms": pass_bytes / HBM_BPS * 1e3}
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
     return row
 
@@ -202,7 +210,8 @@ def time_shapes(reps: int = 30, vec: bool = False, shapes=SHAPES,
     for r in rows:
         log(f"  {r['kernel']:<22} {r['op']:<9} {r['M']:>4}x{r['K']:<4}x"
             f"{r['N']:<4} device {r['device_ms']:.4f} ms (quantize "
-            f"{r['quantize_ms']:.4f}, gemm {r['gemm_ms']:.4f}, other "
+            f"{r['quantize_ms']:.4f} [bound {r['quantize_bound_ms']:.4f}], "
+            f"gemm {r['gemm_ms']:.4f}, other "
             f"{r['other_ms']:.4f}); wrapper {r['wrapper_ms']:.4f} ms; "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows

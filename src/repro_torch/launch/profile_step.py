@@ -9,8 +9,9 @@ calibration, microbatch 4 -> CFG 2B = 8 rows per forward), runs one
 warm-up microbatch, then traces a second one with ``torch.profiler`` and
 prints, per denoising step: the wall time, the device time summed over
 the CUDA kernels, the idle share (1 - device / wall), and the kernels by
-device time — the port's own (``quantize_kernel``, ``gemm_kernel``,
-``gemm4_kernel``, ``codes_kernel``, ``flash_kernel``; under
+device time — the port's own (``prologue_rows_kernel`` and
+``prologue_chunks_kernel``, ``gemm_kernel``, ``gemm4_kernel``,
+``flash_kernel``; under
 ``--attn-impl composed`` ``qk_kernel``, ``softmax_codes_kernel`` and
 ``pv_kernel`` in its place) and the PyTorch glue
 around them — and the host side: the ops by self CPU time (the torch

@@ -43,6 +43,15 @@ at ragged M, N and K (K below one k tile), at M = 8 and on the split-K
 path, f32 and bf16 out, with and without bias and gate + residual;
 B6a/B6b with G = 10 and 20 groups and out-of-range entries clamped; one
 launch per call; and its SASS holds wgmma and TMA loads and no mma.sync.
+
+The prologue pass (``csrc/prologue.cuh``, before every fused linear's
+GEMM): alone (``kernels/prologue.py::codes``) bit for bit against its
+plain version at M in {8, 36, 2048} and K in {16, 70, 1152, 4608}, bits 8,
+6 and 4 (the int4 family's K groups), affine and MRQ, f32 and bf16 x, the
+adaLN shift and scale as bf16 or f32 strided chunk views, ps, scalar and
+out-of-range per-row groups, +-inf; its shared quotient equal to torch's
+division; and a traced full-width forward with no torch layernorm
+statistics (no MeanOps, no pow kernel) at every width.
 """
 from __future__ import annotations
 
@@ -1134,3 +1143,146 @@ def test_flash_kernel_is_wgmma(dev):
     counts = build.sass_counts("flash_attn_mrq", "flash_kernel")
     assert counts["IGMMA"] > 0, counts
     assert counts["IMMA"] == 0 and counts["HMMA"] == 0, counts
+
+
+# -- the prologue pass (csrc/prologue.cuh) -----------------------------------
+PRO = importlib.import_module("repro_torch.kernels.prologue")
+PRO_GROUP_K = {16: (16,), 70: (16, 40), 1152: (256, 16), 4608: (256,)}
+
+
+def _prologue_inputs(dev, M, K, bits, mrq, gen):
+    """x (f32) with a post-GELU-like sign split for MRQ; G = 10 step
+    stacks; the adaLN output (B, 6K) whose first two chunks are shift
+    and scale; ps; a per-row group vector with entries outside [0, 10)."""
+    half, G, B = 2 ** (bits - 1), 10, 4
+    x = torch.randn(M, K, device=dev, generator=gen) * 2
+    if mrq:
+        x = torch.nn.functional.gelu(x, approximate="tanh")
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    if mrq:
+        s_a, s_b = rate * (0.2 / half), rate * (6.0 / half)
+    else:
+        s_a = rate * (8.0 / (2 * half - 1))
+        s_b = torch.round(4.0 / s_a)
+    ada = torch.randn(B, 6 * K, device=dev, generator=gen) * 0.1
+    ps = 0.75 + 0.5 * torch.rand(K, device=dev, generator=gen)
+    gv = torch.randint(-2, G + 2, (M,), device=dev, generator=gen,
+                       dtype=torch.int32)
+    bv = torch.arange(B, dtype=torch.int32, device=dev) \
+        .repeat_interleave(M // B if M >= B else 1)[:M].contiguous()
+    return x, s_a, s_b, ada, ps, gv, bv
+
+
+@pytest.mark.parametrize("bits,mrq", [(8, False), (8, True), (6, False),
+                                      (6, True), (4, False), (4, True)])
+@pytest.mark.parametrize("K", [16, 70, 1152, 4608])
+@pytest.mark.parametrize("M", [8, 36, 2048])
+def test_prologue_pass_matches_plain(dev, M, K, bits, mrq):
+    """The pass alone (``prologue.codes``) against its plain version bit
+    for bit (``B1_norm_mod_vs_plain``, ``B1_vs_plain``): every code plane
+    over f32 and bf16 x, no norm_mod or the adaLN shift and scale as
+    strided chunk views of a bf16 or f32 (B, 6K) output, ps off and on,
+    a scalar group and a per-row vector with out-of-range entries, in
+    the int8 family's layout (bits 8, 6) and the int4 family's (bits 4,
+    K groups of 16 and 40 or 256). Rows without norm_mod carry +-inf."""
+    gen = torch.Generator(device=dev).manual_seed(M + K + bits + mrq)
+    x, s_a, s_b, ada, ps, gv, bv = _prologue_inputs(dev, M, K, bits, mrq,
+                                                    gen)
+    widths = ([{}] if bits > 4 else
+              [{"gk": gk, "gkp": -128 * (-gk // 128)}
+               for gk in PRO_GROUP_K[K]])
+    n = 0
+    for width in widths:
+        for xdt in (torch.float32, torch.bfloat16):
+            for mdt in (None, torch.bfloat16, torch.float32):
+                xx = x.clone()
+                nm = None
+                if mdt is None:
+                    xx[0, 0], xx[-1, -1] = float("inf"), -float("inf")
+                else:
+                    nm = torch.chunk(ada.to(mdt), 6, dim=-1)[:2]
+                xx = xx.to(xdt)
+                for p in (None, ps):
+                    for g in (3, gv):
+                        kw = dict(mrq=mrq, bits=bits, ps=p, nm=nm, bv=bv,
+                                  **width)
+                        out = PRO.codes(xx, s_a, s_b, g, **kw)
+                        ref = PRO.codes_plain(xx, s_a, s_b, g, **kw)
+                        torch.cuda.synchronize()
+                        assert out.shape == ref.shape
+                        bad = int((out != ref).sum())
+                        assert bad == 0, (width, xdt, mdt, p is None,
+                                          torch.is_tensor(g), bad)
+                        n += 1
+    assert n == 24 * len(widths)
+
+
+def test_prologue_quotient_equals_the_ieee_divide(dev):
+    """The shared quotient (``div_rn``, csrc/common.cuh) equals torch's
+    division, and the pass's rounded quotient (``rint_div``) equals
+    torch.round of it below 2^16 and saturates beyond: every finite bf16
+    numerator against the serving steps at 8, 6 and 4 bits (affine and
+    MRQ), and 4M random f32 numerators of the same ranges."""
+    a = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    a = (a.to(torch.int16).view(torch.bfloat16)).float()
+    a = a[torch.isfinite(a)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    steps = []
+    for half in (128, 32, 8):
+        for rate in (1.0, 1.0371, 1.0999):
+            steps += [rate * 8.0 / (2 * half - 1), rate * 0.2 / half,
+                      rate * 6.0 / half]
+    rnd = torch.randn(1 << 22, device=dev, generator=gen) * 3
+    for s in steps:
+        for num in (a, rnd):
+            b = torch.full_like(num, s)
+            want = num / b
+            q, r = PRO.div_probe(num, b)
+            ok = (want.abs() < 65536) & ((want.abs() > 2.0 ** -100)
+                                         | (num == 0))
+            assert torch.equal(q[ok], want[ok]), s
+            small = want.abs() < 65536
+            assert torch.equal(r[small], torch.round(want[small])), s
+            big = ~small
+            assert bool(((r[big].abs() >= 65535) & (torch.sign(r[big])
+                         == torch.sign(want[big]))).all()), s
+
+
+@pytest.mark.parametrize("bits", ["w8a8", "w6a6", "w4a4"])
+def test_forward_launches_no_torch_layernorm_stats(dev, bits):
+    """A profiled full-width DiT-XL/2 forward (depth cut to 2 blocks) at
+    each width: the layernorm statistics of the norm-modulated linears run
+    inside the prologue pass, so the trace holds no torch MeanOps
+    reduction and no pow kernel."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import dit_xl_2
+    from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
+    from repro_torch.launch.serve import perturb_init
+    from repro_torch.models.dit import dit_apply, dit_init
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+    cfg = dataclasses.replace(dit_xl_2.full(), n_layers=2)
+    params = perturb_init(dit_init(0, cfg, device=dev), 0)
+    dif = DiffusionCfg(T=1000)
+    art = quantize(params, cfg, dif, QuantRecipe(bits=bits, method="range"),
+                   sched=make_schedule(dif))
+    ctx = art.context().with_tgroup(5)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(8, cfg.img_size, cfg.img_size, cfg.in_ch, device=dev,
+                    generator=gen)
+    t = torch.full((8,), 500, dtype=torch.int64, device=dev)
+    y = torch.arange(8, device=dev) % cfg.n_classes
+    with torch.no_grad():
+        dit_apply(params, cfg, x, t, y, ctx=ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = dit_apply(params, cfg, x, t, y, ctx=ctx)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.isfinite(out.float()).all()
+    assert any("prologue_rows_kernel" in n for n in names), names
+    assert not [n for n in names if "MeanOps" in n or "pow_" in n], names
