@@ -15,7 +15,10 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              the card's name and power limit, and the SASS of the int8
              GEMM and of the packed-int4 GEMM (each fatal unless it holds
              wgmma and TMA loads and no mma.sync) and of the flash kernel
-             (fatal unless it holds wgmma and no mma.sync).
+             (fatal unless it holds wgmma and no mma.sync), and of the
+             composed chain's matmuls (``csrc/int8_bmm.cu``: ptxas lines
+             per instantiation, fatal on a spill in the serving ones;
+             SASS fatal unless wgmma and no mma.sync).
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
@@ -65,7 +68,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              (``launch/attn_times.py``: B3, B3b, B8, and B3 with a causal
              mask) in device time, asserting one launch a call, beside
              its bound and SDPA; the kernels line's ms for B3, B3b and B8
-             is that device time.
+             is that device time. Then one composed attention call
+             (``ops.int8_attention``, ``attn_times.py --composed``: bits 8
+             and 4, scalar and per-slot groups) in device time by kernel,
+             asserting three launches a call (B9a, B10a, B9b or B9c, B10b,
+             B9d) and no other kernel; the kernels line's ms for B9a-d
+             and B10a-b is that device time.
 3. trained — the trained 6-layer checkpoint ``experiments/dit_bench_450.pkl``
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
@@ -973,6 +981,39 @@ def phase_attn_device(rows):
     return table
 
 
+COMPOSED_TIMED = {"composed bits 8": ("int8_bmm_qk", "softmax_mrq_codes",
+                                       "int8_bmm_pv"),
+                  "composed vec bits 8": ("int8_bmm_qk_vec",
+                                          "softmax_mrq_codes_vec",
+                                          "int8_bmm_pv_vec")}
+
+
+def phase_composed_device(rows):
+    """One composed attention call at the serving shape through
+    ``ops.int8_attention`` on the qkv views (``launch/attn_times.py
+    --composed``): device time by kernel over 30 calls, launches per call
+    (fatal unless 3: B9a, B10a, B9b or their vec siblings, no code pass
+    and no torch copy), each kernel's bound; the kernels line's ms for
+    B9a-d and B10a-b is that device time (their wrapper time, CUDA events
+    on the public entry point alone, stays beside it as wrapper_ms)."""
+    from repro_torch.launch import attn_times
+    log("composed attention call (ops.int8_attention on the (8, 256, 3, "
+        "16, 72) bf16 qkv views), device time per call:")
+    table = {r["case"]: r for r in attn_times.time_composed(reps=30, log=log)}
+    for case, r in table.items():
+        parts = set(r["by_part"])
+        if r["launches"] != 3 or parts != {"qk", "softmax", "pv"}:
+            raise AssertionError(f"{case}: {r['launches']} launches a call, "
+                                 f"parts {sorted(parts)}")
+    for case, names in COMPOSED_TIMED.items():
+        r = table[case]
+        for name, part in zip(names, ("qk", "softmax", "pv")):
+            row = rows[name]
+            row["wrapper_ms"], row["ms"] = row["ms"], r["by_part"][part]
+            row["bound_ms"], row["bound_by"] = r["bounds"][part]
+    return table
+
+
 # ---------------------------------------------------------------------------
 # phase 3: trained checkpoint, quantized vs fp drift at each width
 # ---------------------------------------------------------------------------
@@ -1552,6 +1593,31 @@ def flash_ptxas():
         raise AssertionError(f"flash_kernel spills or serialises: {spilled}")
 
 
+def composed_ptxas():
+    """Phase 1 for the composed chain's matmuls (``csrc/int8_bmm.cu``):
+    ptxas's registers and spills per instantiation, and their SASS:
+    wgmma (IGMMA) and no mma.sync (IMMA, HMMA). Fatal on an mma.sync or a
+    spill in a serving instantiation (bf16, hd 72, FAST:
+    ``qk_kernel<bf16, 3, true>``, ``pv_kernel<bf16, 80, 1, true>``)."""
+    from repro_torch.kernels import build as kbuild
+    spilled = []
+    for kern, serving in (("qk_kernel", "qk_kernelI13__nv_bfloat16Li3ELb1E"),
+                          ("pv_kernel",
+                           "pv_kernelI13__nv_bfloat16Li80ELi1ELb1E")):
+        for fn, line in ptxas_lines("int8_bmm", kern):
+            log(f"  ptxas {fn}: {line}")
+            if spill_bytes(line) and fn.startswith(serving):
+                spilled.append(fn)
+        sass = kbuild.sass_counts("int8_bmm", kern,
+                                  ops=("IGMMA", "IMMA", "HMMA"))
+        log(f"int8_bmm ({kern}) SASS: {sass['IGMMA']} IGMMA (wgmma), "
+            f"{sass['IMMA']} IMMA and {sass['HMMA']} HMMA (mma.sync)")
+        if not sass["IGMMA"] or sass["IMMA"] or sass["HMMA"]:
+            raise AssertionError(f"{kern} is not built on wgmma")
+    if spilled:
+        raise AssertionError(f"the composed matmuls spill: {spilled}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1567,7 +1633,7 @@ def main() -> int:
     secs = kbuild.build_all()
     log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
     for name, text in kbuild.BUILD_LOG.items():
-        if name == "flash_attn_mrq":       # by instantiation: flash_ptxas
+        if name in ("flash_attn_mrq", "int8_bmm"):   # by instantiation
             continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
@@ -1578,6 +1644,7 @@ def main() -> int:
     log(f"card: {smi.stdout.strip()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     flash_ptxas()
+    composed_ptxas()
     prologue_ptxas()
     for lib, kern in (("int8_fused", "gemm_kernel"),
                       ("int4_packed", "gemm4_kernel")):
@@ -1595,6 +1662,7 @@ def main() -> int:
     prologue_cases()
     phase_gemm_device(rows)
     phase_attn_device(rows)
+    phase_composed_device(rows)
     drifts = phase_trained()
     launches = phase_serve()
     for name, n in phase_entry_points().items():

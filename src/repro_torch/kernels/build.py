@@ -118,12 +118,16 @@ _SIGNATURES = {
         "flash_div_probe": [_P] * 3 + [ctypes.c_long] + [_P],
     },
     "int8_bmm": {
-        # q k s_q s_k scale g out q8 k8 | B M N D rep half x_bf16 out_bf16
-        # gs G | stream
-        "int8_bmm_qk_launch": [_P] * 9 + [_I] * 10 + [_P],
-        # codes v s_v scale1 scale2 g out v8t | B M N D rep half x_bf16
-        # out_bf16 gs G | stream
-        "int8_bmm_pv_launch": [_P] * 8 + [_I] * 10 + [_P],
+        # q k s_q s_k scale g out | strides (14 longs, flash's layout) |
+        # Bq M N D rep Hk | alpha (float) | half x_bf16 out_bf16 gs G |
+        # stream
+        "int8_bmm_qk_launch": [_P] * 7 + [ctypes.POINTER(ctypes.c_long)]
+                              + [_I] * 6 + [ctypes.c_float] + [_I] * 5
+                              + [_P],
+        # codes v s_v scale1 scale2 g out | strides | Bq M N D rep Hk half
+        # x_bf16 out_bf16 gs G | stream
+        "int8_bmm_pv_launch": [_P] * 7 + [ctypes.POINTER(ctypes.c_long)]
+                              + [_I] * 11 + [_P],
     },
     "softmax_mrq": {
         # scores s1 g out | R (long) | C rpg half x_bf16 gs G | stream

@@ -101,28 +101,46 @@ def flash_attn_mrq_vec_plain(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1,
         out_dtype=out_dtype, packed_kv=packed_kv)
 
 
+def q_rows(q):
+    """q (B, Sq, Hk, G, hd) -> (B·Hk·G, Sq, hd): slot-major batch·head
+    rows (a copy; the kernels read the view)."""
+    B, Sq, Hk, G, hd = q.shape
+    return q.permute(0, 2, 3, 1, 4).reshape(B * Hk * G, Sq, hd)
+
+
+def kv_rows(k):
+    """k or v (B, Skv, Hk, hd) -> (B·Hk, Skv, hd) (a copy)."""
+    B, Skv, Hk, hd = k.shape
+    return k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd)
+
+
 def flatten_heads(q, k, v):
     """q (B, Sq, Hk, G, hd) -> (B·Hk·G, Sq, hd) and k, v (B, Skv, Hk, hd)
     -> (B·Hk, Skv, hd): slot-major batch·head rows; GQA stays unmaterialised
-    (q row r reads kv row r // G). Copies: the plain versions and the
-    composed chain read rows; the flash kernel reads the views."""
-    B, Sq, Hk, G, hd = q.shape
-    Skv = k.shape[1]
-    return (q.permute(0, 2, 3, 1, 4).reshape(B * Hk * G, Sq, hd),
-            k.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd),
-            v.permute(0, 2, 1, 3).reshape(B * Hk, Skv, hd))
+    (q row r reads kv row r // G). Copies: the plain versions read rows;
+    the kernels read the views."""
+    return q_rows(q), kv_rows(k), kv_rows(v)
+
+
+def heads_view(t, Bk: int):
+    """Public (B, M, D) q or output rows as the kernels' head view (1, M,
+    Bk, B // Bk, D): row b is kv row b // rep, group b % rep (no copy)."""
+    B, M, D = t.shape
+    return t.reshape(1, Bk, B // Bk, M, D).permute(0, 3, 1, 2, 4)
+
+
+def kv_view(t):
+    """Public (Bk, N, D) k or v rows as the head view (1, N, Bk, D)."""
+    Bk, N, D = t.shape
+    return t.reshape(1, Bk, N, D).permute(0, 2, 1, 3)
 
 
 def rows_as_heads(q, k, v, out):
     """The public (B, M, D) operands as the kernel's head views: q and out
     as (1, M, Bk, rep, D), k and v as (1, N, Bk, D) — q row b is kv row
     b // rep, group b % rep (no copy)."""
-    B, M, D = q.shape
-    Bk, N, _ = k.shape
-    rep = B // Bk
-    heads = lambda t: t.reshape(1, Bk, rep, M, D).permute(0, 3, 1, 2, 4)
-    kv = lambda t: t.reshape(1, Bk, N, D).permute(0, 2, 1, 3)
-    return heads(q), kv(k), kv(v), heads(out)
+    Bk = k.shape[0]
+    return heads_view(q, Bk), kv_view(k), kv_view(v), heads_view(out, Bk)
 
 
 def launch_strides(q5, k4, v4, out5):

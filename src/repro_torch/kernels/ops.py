@@ -31,7 +31,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core.quantizers import (
@@ -39,7 +38,7 @@ from repro_torch.core.quantizers import (
 )
 from repro_torch.kernels.act_mrq import act_mrq
 from repro_torch.kernels.flash_attn_mrq import (
-    flash_attn_mrq, flash_attn_mrq_vec, flatten_heads,
+    flash_attn_mrq, flash_attn_mrq_vec,
 )
 from repro_torch.kernels.int4_packed import (
     int4_matmul_fq, int4_matmul_fq_vec, int4_matmul_mrq_fq,
@@ -496,46 +495,45 @@ def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     beside flash, ``attn_impl="composed"``.
 
     Same contract and packs as :func:`flash_attention`: q (B, Sq, Hk, G,
-    hd); k, v (B, Skv, Hk, hd); mask broadcastable to (B, Hk, G, Sq, Skv)
-    boolean or None, applied to the f32 scores between B9a and B10a;
-    ``scale`` folds into the QK^T dequant scale (once, on the host).
-    Returns (B, Sq, Hk, G, hd) in ``out_dtype`` (q's dtype by default).
-    The probabilities travel from B10a to B9b as int8 region-signed
-    codes. With a per-slot (B,) ``tgroup``, the packs' (B·Hk·G,) row
-    vectors come from ``_groups`` (built once per forward); B10b reads
-    its row's entry at ``row // Sq``."""
+    hd); k, v (B, Skv, Hk, hd), at any strides with the head dim
+    contiguous: B9a reads the q and k views of the qkv projection's output
+    where they lie, and B9b reads v and writes (B, Sq, Hk, G, hd)
+    contiguous, so neither side copies. mask broadcastable to (B, Hk, G,
+    Sq, Skv) boolean or None, applied to the f32 (B·Hk·G, Sq, Skv) scores
+    between B9a and B10a; ``scale`` multiplies the QK^T dequant scale (in
+    the kernel). Returns (B, Sq, Hk, G, hd) in ``out_dtype`` (q's dtype by
+    default). The probabilities travel from B10a to B9b as int8
+    region-signed codes. With a per-slot (B,) ``tgroup``, the packs'
+    (B·Hk·G,) row vectors come from ``_groups`` (built once per forward);
+    B10b reads its row's entry at ``row // Sq``."""
     out_dtype = out_dtype or q.dtype
-    B, Sq, Hk, G, hd = q.shape
+    B, Sq, Hk, G, _ = q.shape
     Skv = k.shape[1]
     BHG = B * Hk * G
-    qf, kf, vf = flatten_heads(q, k, v)
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)
     vec = is_vec(g_qk) or is_vec(g_pv)
     qk_bits = int(qk_pack.get("bits", 8))
     pv_bits = int(pv_pack.get("bits", 8))
-    qk_args = (qf, kf, qk_pack["s_q"], qk_pack["s_k"],
-               qk_pack["scale"] * float(np.float32(scale)))
+    qk_args = (q, k, qk_pack["s_q"], qk_pack["s_k"], qk_pack["scale"])
     pv_params = (pv_pack["s_v"], pv_pack["scale1"], pv_pack["scale2"])
     if vec:
         g_qk, g_pv = (_as_vec(g, BHG, q.device) for g in (g_qk, g_pv))
-        scores = int8_bmm_qk_vec(*qk_args, gv=g_qk, bits=qk_bits)
+        scores = int8_bmm_qk_vec(*qk_args, gv=g_qk, bits=qk_bits,
+                                 alpha=scale)
     else:
-        scores = int8_bmm_qk(*qk_args, g=g_qk, bits=qk_bits)
+        scores = int8_bmm_qk(*qk_args, g=g_qk, bits=qk_bits, alpha=scale)
     if mask is not None:
         scores = torch.where(mask, scores.reshape(B, Hk, G, Sq, Skv),
                              NEG_INF).reshape(BHG, Sq, Skv)
     if vec:
         codes = softmax_mrq_codes_vec(scores, pv_pack["s1"], gv=g_pv,
                                       bits=pv_bits)
-        out = int8_bmm_pv_vec(codes, vf, *pv_params, gv=g_pv, bits=pv_bits,
-                              out_dtype=out_dtype)
-    else:
-        codes = softmax_mrq_codes(scores, pv_pack["s1"], g=g_pv,
-                                  bits=pv_bits)
-        out = int8_bmm_pv(codes, vf, *pv_params, g=g_pv, bits=pv_bits,
-                          out_dtype=out_dtype)
-    return out.reshape(B, Hk, G, Sq, hd).permute(0, 3, 1, 2, 4)
+        return int8_bmm_pv_vec(codes, v, *pv_params, gv=g_pv, bits=pv_bits,
+                               out_dtype=out_dtype)
+    codes = softmax_mrq_codes(scores, pv_pack["s1"], g=g_pv, bits=pv_bits)
+    return int8_bmm_pv(codes, v, *pv_params, g=g_pv, bits=pv_bits,
+                       out_dtype=out_dtype)
 
 
 def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,

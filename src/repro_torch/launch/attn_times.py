@@ -1,7 +1,7 @@
 """Device time of one attention call at the DiT-XL/2 serving shape.
 
     python src/repro_torch/launch/attn_times.py [--src DIR] [--reps 30] \
-        [--label NAME] [--ablate]
+        [--label NAME] [--ablate] [--timeline] [--composed]
 
 One call of ``ops.flash_attention`` on the q, k and v views of a
 (B = 8, N = 256, 3, H = 16, hd = 72) bf16 qkv projection output (the
@@ -22,7 +22,22 @@ CFG row) at bits 8 and 4, and B3 with a causal mask. For each it prints:
 - SDPA ms: ``scaled_dot_product_attention`` on the same bf16 q, k, v
   (another function: no int8 products, no MRQ codes), the yardstick.
 
+``--composed`` times ``ops.int8_attention`` (``attn_impl="composed"``)
+on the same views instead: B9a -> B10a -> B9b at bits 8 and 4, and B9c
+-> B10b -> B9d with per-slot groups. Each row splits the device time
+into the chain's parts (``qk_kernel``, ``softmax_codes_kernel``,
+``pv_kernel``, any ``codes_kernel`` pre-pass, and the torch glue: head
+copies and permutes), gives each kernel's bound (qk: q and k read once,
+the f32 scores written once, or its int8 products; B10: the scores read,
+the codes written, or 7 fp32 operations a score; pv: the codes and v
+read, the output written, or its two int8 products) and the chain's
+(their sum: the scores and codes cross device memory by the reference's
+contract), and a sha256 of the call's output bytes, so a parent and a
+change can be held bit for bit across trees.
+
 ``--ablate`` times throwaway builds of the tree's ``csrc/flash_attn_mrq.cu``
+(with ``--composed``: of ``csrc/int8_bmm.cu``, ``COMPOSED_ABLATIONS``, on
+the composed call at bits 8)
 with one part switched off at a time (``ABLATIONS``: textual patches; the
 first six fit the ``mma.sync`` kernel of commit 73ac78a, run with
 ``--src`` on that tree unpacked by ``git archive``, the rest the
@@ -30,7 +45,10 @@ one-launch wgmma kernel that replaced it); a patch whose text the source
 does not hold is reported and skipped. The outputs of those builds are
 wrong by construction: only their times are read.
 
-``--timeline`` builds the tree's flash source once more with ``clock64``
+``--timeline`` (with ``--composed``: the P.V kernel's, ``COMPOSED_TIMELINE``:
+per kv tile when v landed and was coded, the codes landed and the
+products were done, then the epilogue) builds the tree's flash source
+once more with ``clock64``
 stamps (``TIMELINE``: textual patches of the one-launch wgmma kernel) and
 runs B3 bits 8 three times: for two CTAs, the producer's cycles (from
 the kernel's start) at which tile 0's copies were issued, tiles 0 and 1
@@ -199,10 +217,46 @@ TIMELINE = [
 ]
 
 
-def _install(text: str, name: str):
-    """Build ``text`` as the flash library (the tree's flags) and make it
-    the one ``build.lib("flash_attn_mrq")`` returns; returns the build's
-    compiler output."""
+# (text in the source, replacement): clock64 stamps of the composed P.V
+# kernel (csrc/int8_bmm.cu) for threads 0 and 384 of two CTAs: when tile t's
+# v rows landed, its v codes were made, its probability codes landed, its
+# products were done; the epilogue's start and the end
+COMPOSED_TIMELINE = [
+    ("  const bool stage = FAST || (L::STAGE && a.vec_ok);\n",
+     "  const bool stage = FAST || (L::STAGE && a.vec_ok);\n"
+     "  const long long T0 = clock64();\n  long long tl[16];\n  int nt = 0;\n"
+     "  const bool LOGB = (blockIdx.y == 5 || blockIdx.y == 77) "
+     "&& (threadIdx.x == 0 || threadIdx.x == 384);\n"),
+    ("    __syncthreads();                    // ... for every thread; t - 1 "
+     "done\n",
+     "    __syncthreads();\n    if (nt < 12) tl[nt++] = clock64();\n"),
+    ("    cp_async_wait_n(next ? 2 : t == 0 && two ? 1 : 0);   // codes(t) "
+     "landed\n",
+     "    if (nt < 12) tl[nt++] = clock64();\n"
+     "    cp_async_wait_n(next ? 2 : t == 0 && two ? 1 : 0);\n"),
+    ("    __syncthreads();                    // the v^T tile is coded\n",
+     "    __syncthreads();\n    if (nt < 12) tl[nt++] = clock64();\n"),
+    ("    fence_regs(pa[1]);\n  }\n",
+     "    fence_regs(pa[1]);\n    if (nt < 12) tl[nt++] = clock64();\n  }\n"),
+    ("  __syncthreads();\n  const long ob = q_base(a.os, b, a.rep, a.Hk);\n",
+     "  __syncthreads();\n  const long long te = clock64();\n"
+     "  const long ob = q_base(a.os, b, a.rep, a.Hk);\n"),
+    ("            *reinterpret_cast<const uint4*>(ys + r * L::YROW + 16 * c);\n"
+     "    }\n    __syncwarp();\n  }\n}\n",
+     "            *reinterpret_cast<const uint4*>(ys + r * L::YROW + 16 * c);\n"
+     "    }\n    __syncwarp();\n  }\n"
+     "  if (LOGB && nt >= 8) printf(\"pv b%d t%d: v0 %lld coded0 %lld codes0 "
+     "%lld mma0 %lld | v1 %lld coded1 %lld codes1 %lld mma1 %lld | epi %lld "
+     "end %lld\\n\", blockIdx.y, threadIdx.x, tl[0] - T0, tl[1] - T0, "
+     "tl[2] - T0, tl[3] - T0, tl[4] - T0, tl[5] - T0, tl[6] - T0, "
+     "tl[7] - T0, te - T0, clock64() - T0);\n}\n"),
+]
+
+
+def _install(text: str, name: str, lib: str = "flash_attn_mrq"):
+    """Build ``text`` as the library ``lib`` (the tree's flags) and make it
+    the one ``build.lib(lib)`` returns; returns the build's compiler
+    output."""
     from repro_torch.kernels import build
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -213,45 +267,48 @@ def _install(text: str, name: str):
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"{name} failed to build:\n{r.stdout}{r.stderr}")
-    _use(so)
+    _use(so, lib)
     return r.stdout + r.stderr
 
 
-def _use(so):
-    """Make the built library ``so`` the one ``build.lib("flash_attn_mrq")``
-    returns (the tree's own signatures)."""
+def _use(so, name="flash_attn_mrq"):
+    """Make the built library ``so`` the one ``build.lib(name)`` returns
+    (the tree's own signatures)."""
     from repro_torch.kernels import build
-    build.lib("flash_attn_mrq")
+    build.lib(name)
     lib = ctypes.CDLL(str(so))
-    for fn, argtypes in build._SIGNATURES["flash_attn_mrq"].items():
+    for fn, argtypes in build._SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    build._LIBS["flash_attn_mrq"] = lib
+    build._LIBS[name] = lib
 
 
-def timeline():
-    """Three B3 bits 8 calls of the stamped build (``TIMELINE``); the
-    stamps print from the card as each call completes."""
+def timeline(composed=False):
+    """Three B3 bits 8 calls of the stamped build (``TIMELINE``; with
+    ``composed``, three composed calls with the P.V kernel stamped,
+    ``COMPOSED_TIMELINE``); the stamps print from the card as each call
+    completes."""
     import torch
     from repro_torch.kernels import build
-    text = "#include <cstdio>\n" + (build.CSRC / "flash_attn_mrq.cu").read_text()
-    for old, new in TIMELINE:
+    lib = "int8_bmm" if composed else "flash_attn_mrq"
+    text = "#include <cstdio>\n" + (build.CSRC / f"{lib}.cu").read_text()
+    for old, new in COMPOSED_TIMELINE if composed else TIMELINE:
         if text.count(old) != 1:
             raise RuntimeError(f"timeline: the source does not hold {old!r}")
         text = text.replace(old, new)
-    saved = build.lib("flash_attn_mrq")
+    saved = build.lib(lib)
     try:
-        _install(text, "timeline")
+        _install(text, "timeline", lib)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        run = make_case(8, False, False, gen)[0]
+        run = make_case(8, False, False, gen, composed=composed)[0]
         for _ in range(3):
             run()
             torch.cuda.synchronize()
             print("---", flush=True)
     finally:
-        build._LIBS["flash_attn_mrq"] = saved
+        build._LIBS[lib] = saved
 
 
 def bound(nbytes: float, int8_ops: float, fp32_ops: float):
@@ -299,9 +356,9 @@ def wrapper_ms(run, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_case(bits: int, vec: bool, masked: bool, gen):
-    """(run, q, k, v) of one ``ops.flash_attention`` call on the qkv views
-    at the serving shape."""
+def make_case(bits: int, vec: bool, masked: bool, gen, composed=False):
+    """(run, q, k, v) of one ``ops.flash_attention`` (``composed``:
+    ``ops.int8_attention``) call on the qkv views at the serving shape."""
     import torch
     from repro_torch.kernels import ops
     dev = torch.device("cuda")
@@ -323,10 +380,11 @@ def make_case(bits: int, vec: bool, masked: bool, gen):
     mask = (torch.ones(N, N, dtype=torch.bool, device=dev).tril()
             if masked else None)
 
+    attend = ops.int8_attention if composed else ops.flash_attention
+
     def run():
-        return ops.flash_attention(
-            q.reshape(B, N, H, 1, HD), k, v, qk_pack, pv_pack, mask=mask,
-            scale=HD ** -0.5, tgroup=tgroup)
+        return attend(q.reshape(B, N, H, 1, HD), k, v, qk_pack, pv_pack,
+                      mask=mask, scale=HD ** -0.5, tgroup=tgroup)
     return run, q, k, v
 
 
@@ -367,16 +425,121 @@ def time_cases(reps: int = 30, cases=CASES, log=print):
     return rows
 
 
-def ablate(reps: int, log=print):
-    """Throwaway builds of the tree's flash kernel with one part switched
-    off each (``ABLATIONS``), timed on B3 bits 8 beside the unpatched
-    build."""
+# (name, [(text in the source, replacement)]): each switches one part of
+# the composed matmuls (csrc/int8_bmm.cu) off while keeping the rest alive
+COMPOSED_ABLATIONS = [
+    ("qk: no wgmma", [
+        ("wgmma_ss0(acc, dq, dk);",
+         "for (int i = 0; i < 64; ++i) acc[i] = t + i;"),
+        ("for (int kk = 1; kk < NKC; ++kk) wgmma_ss(acc, dq + 2 * kk, "
+         "dk + 2 * kk);", "")]),
+    ("qk: no score stores", [(
+        "            *reinterpret_cast<uint4*>(static_cast<uint8_t*>(a.out)\n"
+        "                + (((long)b * M + m) * N + n0) * osz + 16 * c) =\n"
+        "                *reinterpret_cast<const uint4*>(ys + rr * yp + 16 * c);",
+        "            asm volatile(\"\" :: \"r\"(*reinterpret_cast<const "
+        "unsigned*>(ys + rr * yp + 16 * c)));")]),
+    ("qk: q and k staged but not coded", [(
+        "      w = code8(x, s, y, hi);",
+        "      w = make_uint2(__float_as_uint(x[0]), __float_as_uint(x[7]));")]),
+    ("pv: no wgmma", [(
+        "        wgmma_rs(acc1[hh], p[0], d);\n"
+        "        wgmma_rs(acc2[hh], p[1], d);",
+        "        acc1[hh][kc] += (int)p[0][0];\n"
+        "        acc2[hh][kc] += (int)p[1][1];")]),
+    ("pv: v staged but not coded", [(
+        "w[j] = n < N ? code8(x, sv, yv, hi) : make_uint2(0u, 0u);",
+        "w[j] = make_uint2(__float_as_uint(x[0]), __float_as_uint(x[7]));")]),
+    ("pv: no codes loads", [(
+        "        cp_async16(tp + r * PP + 16 * j,\n"
+        "                   cb + (long)min(m, M - 1) * N + min(n, N - 16),\n"
+        "                   m < M && n < N);",
+        "        (void)tp;")]),
+    ("pv: no v loads", [(
+        "        cp_async16(raw + r * rb + 16 * raw_slot<TX>(c, r, cpc),",
+        "        if (false) cp_async16(raw + r * rb + 16 * raw_slot<TX>(c, r, "
+        "cpc),")]),
+    ("pv: no output stores", [(
+        "        *reinterpret_cast<uint4*>(static_cast<uint8_t*>(a.out)\n"
+        "                                  + (ob + grow * a.os[3]) * osz + 16 * c) =\n"
+        "            *reinterpret_cast<const uint4*>(ys + r * L::YROW + 16 * c);",
+        "        asm volatile(\"\" :: \"r\"(*reinterpret_cast<const unsigned*>("
+        "ys + r * L::YROW + 16 * c)));")]),
+]
+
+COMPOSED_CASES = [("composed bits 8", 8, False),
+                  ("composed bits 4", 4, False),
+                  ("composed vec bits 8", 8, True),
+                  ("composed vec bits 4", 4, True)]
+# the composed chain's parts by kernel name (before any "<"); the rest is
+# torch glue
+PARTS = {"qk_kernel": "qk", "softmax_codes_kernel": "softmax",
+         "pv_kernel": "pv", "codes_kernel": "codes pre-pass"}
+CODES_FP32_PER_SCORE = 7     # B10: max, sub, exp, sum, 2 divides, round
+
+
+def composed_bounds():
+    """{part: (bound ms, "bytes" or "operations")} of one composed call at
+    the serving shape (bf16 q, k, v and out; the per-group parameters are
+    a few bytes), and the chain's sum under "chain"."""
+    x, sc = B * N * H * HD * 2, B * H * N * N
+    parts = {"qk": bound(2 * x + 4 * sc, 2 * sc * HD, 0),
+             "softmax": bound(4 * sc + sc, 0, CODES_FP32_PER_SCORE * sc),
+             "pv": bound(sc + 2 * x, 2 * 2 * sc * HD, 0)}
+    parts["chain"] = (sum(t for t, _ in parts.values()), "bytes")
+    return parts
+
+
+def time_composed(reps: int = 30, cases=COMPOSED_CASES, log=print):
+    """One row per composed case: device ms by kernel and by part,
+    launches, wrapper ms, bounds and the output's sha256."""
+    import hashlib
+
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bounds = composed_bounds()
+    rows = []
+    for name, bits, vec in cases:
+        run = make_case(bits, vec, False, gen, composed=True)[0]
+        out = run()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(
+            out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()
+        dev, launches = device_ms(run, reps)
+        parts = collections.Counter()
+        for k, t in dev.items():
+            parts[PARTS.get(k.split("<")[0], "torch glue")] += t
+        row = {"case": name, "device_ms": sum(dev.values()),
+               "by_kernel": dev, "by_part": dict(parts),
+               "launches": launches, "wrapper_ms": wrapper_ms(run, reps),
+               "bounds": bounds, "bound_ms": bounds["chain"][0],
+               "sha256": digest}
+        rows.append(row)
+        log(f"  {name:<22} device {row['device_ms']:.4f} ms in "
+            f"{launches:.1f} launches ("
+            + ", ".join(f"{p} {t:.4f}" + (
+                f" [bound {bounds[p][0]:.4f}]" if p in bounds else "")
+                for p, t in sorted(parts.items(), key=lambda kv: -kv[1]))
+            + f"); wrapper {row['wrapper_ms']:.4f} ms; chain bound "
+            f"{row['bound_ms']:.4f} ms; out sha256 {digest[:16]}")
+        log("    by kernel: " + ", ".join(f"{k} {t:.4f}" for k, t in sorted(
+            dev.items(), key=lambda kv: -kv[1])))
+    return rows
+
+
+def ablate(reps: int, log=print, composed=False):
+    """Throwaway builds of the tree's flash kernel (``composed``: of its
+    composed matmuls, ``csrc/int8_bmm.cu``) with one part switched off
+    each (``ABLATIONS``, ``COMPOSED_ABLATIONS``), timed on B3 bits 8 (the
+    composed call at bits 8) beside the unpatched build."""
     from repro_torch.kernels import build
-    src = (build.CSRC / "flash_attn_mrq.cu").read_text()
+    lib = "int8_bmm" if composed else "flash_attn_mrq"
+    src = (build.CSRC / f"{lib}.cu").read_text()
     out_dir = build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = [("unpatched", src)]
-    for name, patches in ABLATIONS:
+    for name, patches in COMPOSED_ABLATIONS if composed else ABLATIONS:
         text = src
         missing = [old for old, _ in patches if text.count(old) != 1]
         if missing:
@@ -388,16 +551,17 @@ def ablate(reps: int, log=print):
         variants.append((name, text))
     procs = []
     for i, (name, text) in enumerate(variants):
-        cu = out_dir / f"v{i}.cu"
+        cu = out_dir / f"{lib}_v{i}.cu"
         cu.write_text(text)
-        so = out_dir / f"libv{i}.so"
+        so = out_dir / f"lib{lib}_v{i}.so"
         procs.append((name, so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
              str(so), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     rows = []
-    build.lib("flash_attn_mrq")          # the signatures' home
-    saved = build._LIBS["flash_attn_mrq"]
+    build.lib(lib)                       # the signatures' home
+    saved = build._LIBS[lib]
+    quiet = lambda *a: None
     try:
         for name, so, p in procs:
             log_text, _ = p.communicate()
@@ -406,17 +570,19 @@ def ablate(reps: int, log=print):
                                    f"{log_text}")
             spills = [int(x) for x in re.findall(
                 r"(\d+) bytes spill stores", log_text)]
-            _use(so)
-            row = time_cases(reps, CASES[:1], log=lambda *a: None)[0]
+            _use(so, lib)
+            row = (time_composed(reps, COMPOSED_CASES[:1], log=quiet) if composed
+                   else time_cases(reps, CASES[:1], log=quiet))[0]
             row["ablation"] = name
             row["max_spill_bytes"] = max(spills, default=0)
             rows.append(row)
+            parts = row["by_part"] if composed else row["by_kernel"]
             log(f"  ablation {name:<42} device {row['device_ms']:.4f} ms "
                 f"(spill stores <= {row['max_spill_bytes']} B; "
                 + ", ".join(f"{k} {t:.4f}" for k, t in sorted(
-                    row["by_kernel"].items(), key=lambda kv: -kv[1])) + ")")
+                    parts.items(), key=lambda kv: -kv[1])) + ")")
     finally:
-        build._LIBS["flash_attn_mrq"] = saved
+        build._LIBS[lib] = saved
     return rows
 
 
@@ -428,6 +594,8 @@ def main(argv=None) -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--ablate", action="store_true",
                     help="also time builds with one part switched off")
+    ap.add_argument("--composed", action="store_true",
+                    help="time ops.int8_attention instead of flash")
     ap.add_argument("--timeline", action="store_true",
                     help="print clock64 stamps of one CTA's phases")
     args = ap.parse_args(argv)
@@ -442,11 +610,12 @@ def main(argv=None) -> None:
           f"{os.path.dirname(repro_torch.__file__)} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     if args.timeline:
-        timeline()
+        timeline(composed=args.composed)
         return
-    rows = time_cases(args.reps)
+    rows = (time_composed(args.reps) if args.composed
+            else time_cases(args.reps))
     if args.ablate:
-        rows += ablate(args.reps)
+        rows += ablate(args.reps, composed=args.composed)
     print(json.dumps({"label": args.label, "rows": rows}))
 
 

@@ -53,6 +53,7 @@ from repro_torch.serving.batching import GenRequest
 from repro_torch.serving.engine import AsyncServeEngine, ServeEngine
 
 SM = importlib.import_module("repro_torch.kernels.softmax_mrq")
+FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
 
 TOL = tref.TOLERANCES
 # (B, Sq, Skv, hd, rep): ragged on every tile edge, 1-row q, GQA
@@ -215,12 +216,26 @@ def _flat(q, k, v):
     return qf, kf, vf
 
 
+def _qkv_views(q, k, v):
+    """q, k, v as strided views of one (B, S, Hk * (Gq + 2), hd) projection
+    output, the way the DiT block hands them to the chain (GQA: Gq q
+    heads per kv head)."""
+    B, S, Hk, Gq, D = q.shape
+    qkv = torch.from_numpy(np.concatenate(
+        [q.reshape(B, S, Hk * Gq, D), k, v], axis=2))
+    return (qkv[:, :, :Hk * Gq].reshape(B, S, Hk, Gq, D),
+            qkv[:, :, Hk * Gq:Hk * (Gq + 1)], qkv[:, :, Hk * (Gq + 1):])
+
+
+@pytest.mark.parametrize("layout", ["rows", "qkv_views"])
 @pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
 @pytest.mark.parametrize("bits", [8, 4])
-def test_int8_attention_matches_jax_ref(bits, masked, vec):
+def test_int8_attention_matches_jax_ref(bits, masked, vec, layout):
     """``ops.int8_attention`` (GQA, ragged S) against ``int8_attention_ref``
-    / ``int8_attention_vec_ref``, with and without a causal mask."""
+    / ``int8_attention_vec_ref``, with and without a causal mask, on
+    contiguous operands and on the strided views of one qkv output (the
+    serving seam)."""
     G = 3
     q, k, v, qk, pv = _attn_case(7 * bits + masked + 2 * vec, bits, G)
     B, Sq, Hk, Gq, D = q.shape
@@ -228,9 +243,12 @@ def test_int8_attention_matches_jax_ref(bits, masked, vec):
     scale = D ** -0.5
     mask = np.tril(np.ones((Sq, Skv), bool)) if masked else None
     tg = _t(np.array([2, 0], np.int32)) if vec else 1
-    t = ops.int8_attention(_t(q), _t(k), _t(v), {**{a: _t(b) for a, b in
-                                                    qk.items()}, "groups": G,
-                                                 "bits": bits},
+    ops_in = (_qkv_views(q, k, v) if layout == "qkv_views"
+              else (_t(q), _t(k), _t(v)))
+    assert (layout == "rows") == all(t.is_contiguous() for t in ops_in)
+    t = ops.int8_attention(*ops_in, {**{a: _t(b) for a, b in
+                                        qk.items()}, "groups": G,
+                                     "bits": bits},
                            {**{a: _t(b) for a, b in pv.items()}, "groups": G,
                             "bits": bits},
                            mask=None if mask is None else _t(mask),
@@ -254,6 +272,38 @@ def test_int8_attention_matches_jax_ref(bits, masked, vec):
     half = 2 ** (bits - 1)
     step = float(pv["s_v"].max()) * (half - 1) / half
     assert err.max() <= TOL["composed_atol_steps"][0] * step
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_bmm_seam_on_head_views_equals_rows(bits, vec):
+    """B9a/B9c on the head views (q (B, Sq, Hk, Gq, hd), k (B, Skv, Hk,
+    hd)) give the (B·Hk·Gq, Sq, Skv) scores of the flattened rows, with
+    ``alpha`` folded into the scale as the kernel folds it; B9b/B9d given
+    the v view give the rows' output in (B, Sq, Hk, Gq, hd) order."""
+    G = 3
+    q, k, v, qk, pv = _attn_case(90 + bits + vec, bits, G, Sq=21, Skv=30)
+    B, Sq, Hk, Gq, D = q.shape
+    qv, kv_, vv = _t(q), _t(k), _t(v)
+    qr, kr, vr = (t.contiguous() for t in FA.flatten_heads(qv, kv_, vv))
+    g = torch.tensor([2, 1], dtype=torch.int32).repeat_interleave(Hk * Gq) \
+        if vec else 2
+    qk_fn, pv_fn = ((IB.int8_bmm_qk_vec, IB.int8_bmm_pv_vec) if vec
+                    else (IB.int8_bmm_qk, IB.int8_bmm_pv))
+    qka = tuple(_t(qk[a]) for a in ("s_q", "s_k", "scale"))
+    pva = tuple(_t(pv[a]) for a in ("s_v", "scale1", "scale2"))
+    alpha = D ** -0.5
+    scores = qk_fn(qv, kv_, *qka, g, bits=bits, alpha=alpha)
+    assert torch.equal(scores, qk_fn(qr, kr, *qka, g, bits=bits,
+                                     alpha=alpha))
+    assert torch.equal(scores, qk_fn(
+        qr, kr, qka[0], qka[1], qka[2] * float(np.float32(alpha)), g,
+        bits=bits))
+    codes = SM.softmax_mrq_codes(scores, _t(pv["s1"]), 1, bits=bits)
+    out = pv_fn(codes, vv, *pva, g, bits=bits)
+    assert tuple(out.shape) == (B, Sq, Hk, Gq, D)
+    assert torch.equal(out, pv_fn(codes, vr, *pva, g, bits=bits)
+                       .reshape(B, Hk, Gq, Sq, D).permute(0, 3, 1, 2, 4))
 
 
 @pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])

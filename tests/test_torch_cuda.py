@@ -22,11 +22,16 @@ the scalar kernel run group by group over each group's rows. A group
 entry outside [0, G) reads the nearest group (the kernels clamp it).
 
 The composed attention chain: B9a, B10a and B9b bit-exact against their
-plain versions (``B9_vs_plain``, ``B10_vs_plain``; f32 and bf16, ragged
-S, 1-row q, GQA), their per-row-group siblings B9c, B10b and B9d held the
-same three ways, ``ops.int8_attention`` on the card equal to its plain
-composition and within ``flash_vs_composed_atol`` of flash, and a
-refused launch or failed build raising ``KernelError``.
+plain versions (``B9_vs_plain``, ``B10_vs_plain``; f32 and bf16 in and
+out, ragged M and S, 1-row q, head dims 1 to 128, GQA), their
+per-row-group siblings B9c, B10b and B9d held the same three ways (GQA
+included: no kv copy), the qkv-view seam equal to contiguous rows and to
+the plain versions, the serving shape bit for bit in three launches, the
+codes made in shared memory equal to the former code pass's IEEE divide
+on every edge (2^16 saturation, +-inf, NaN), both matmuls on wgmma,
+``ops.int8_attention`` on the card equal to its plain composition and
+within ``flash_vs_composed_atol`` of flash, and a refused launch or
+failed build raising ``KernelError``.
 
 The public kernel API: B11 ``int8_matmul`` over the reference's matmul
 shape sweep, B12 ``softmax_mrq`` over its row lengths and B13 ``act_mrq``
@@ -410,13 +415,25 @@ def _plain(fn):
 @pytest.mark.parametrize("bits", [8, 6, 4])
 @pytest.mark.parametrize("B,M,S,D,rep", [(3, 77, 77, 40, 1),
                                          (2, 300, 300, 72, 2),
-                                         (4, 1, 130, 17, 1)])
+                                         (4, 1, 130, 17, 1),
+                                         # head dims 1 .. 128 (every
+                                         # instantiation), M != S off the
+                                         # 64-row, 128-row and kv tiles
+                                         (2, 130, 77, 1, 1),
+                                         (2, 65, 300, 8, 3),
+                                         (1, 200, 129, 65, 1),
+                                         (2, 256, 256, 80, 1),
+                                         (1, 100, 140, 96, 2),
+                                         (2, 70, 260, 128, 1)])
 def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
     q, k, v, qk, s1, pv = _composed_case(dev, B, M, S, D, bits, 3,
                                          M + S + D + bits, rep)
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd = (t.to(dt) for t in (q, k, v))
         before = dict(kernels.LAUNCHES)
+        qk_bf16 = lambda: IB.int8_bmm_qk(qd, kd, *qk, 1, bits=bits,
+                                         out_dtype=torch.bfloat16)
+        assert torch.equal(qk_bf16(), _plain(qk_bf16)), (dt, "B9a bf16")
         qk_run = lambda: IB.int8_bmm_qk(qd, kd, *qk, 1, bits=bits)
         scores = qk_run()
         assert torch.equal(scores, _plain(qk_run)), (dt, "B9a")
@@ -432,17 +449,20 @@ def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
         assert out.shape == (B * rep, M, D) and torch.isfinite(out).all()
         after = {n: kernels.LAUNCHES[n] - before[n] for n in before}
         assert {n: c for n, c in after.items() if c} == {
-            "int8_bmm_qk": 1, "softmax_mrq_codes": 3, "int8_bmm_pv": 1}
+            "int8_bmm_qk": 2, "softmax_mrq_codes": 3, "int8_bmm_pv": 1}
     assert (TOLERANCES["B9_vs_plain"][0], TOLERANCES["B10_vs_plain"][0]) \
         == (0.0, 0.0)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("S,D,rep", [(77, 40, 1), (300, 72, 2)])
+@pytest.mark.parametrize("S,D,rep", [(77, 40, 1), (300, 72, 2),
+                                     (130, 8, 3), (256, 96, 2),
+                                     (65, 128, 1)])
 def test_composed_vec_kernels_three_ways(dev, bits, S, D, rep):
     """B9c, B10b (compact per-batch-row vector and one group per row) and
     B9d against their plain versions, against the scalar kernels with a
-    constant vector, and batch row by batch row."""
+    constant vector, and batch row by batch row; under GQA (rep > 1) each
+    q row codes its kv rows with its own group (no kv copy)."""
     BH, G = 6, 3
     q, k, v, qk, s1, pv = _composed_case(dev, BH // rep, S, S, D, bits, G,
                                          S + D + bits, rep)
@@ -540,10 +560,10 @@ def test_composed_refused_launch_and_failed_build_raise(dev, monkeypatch,
     ``KernelError`` from the wrapper. Nothing falls back."""
     from repro_torch.kernels import build
     for name, fn, args in (
-            ("int8_bmm", "int8_bmm_qk_launch", [0] * 9 + [0, 1, 1, 1, 1,
-                                                        128, 0, 0, 0, 1, 0]),
-            ("int8_bmm", "int8_bmm_pv_launch", [0] * 8 + [0, 1, 1, 1, 1,
-                                                        128, 0, 0, 0, 1, 0]),
+            ("int8_bmm", "int8_bmm_qk_launch",
+             [0] * 7 + [None, 0, 1, 1, 1, 1, 1, 1.0, 128, 0, 0, 0, 1, 0]),
+            ("int8_bmm", "int8_bmm_pv_launch",
+             [0] * 7 + [None, 0, 1, 1, 1, 1, 1, 128, 0, 0, 0, 1, 0]),
             ("softmax_mrq", "softmax_mrq_codes_launch",
              [0] * 4 + [0, 1, 1, 128, 0, 0, 1, 0])):
         err = getattr(build.lib(name), fn)(*args)
@@ -591,6 +611,147 @@ def test_async_composed_engine_matches_sync_on_the_card(dev, quantize):
         assert mid[name] > before[name]
         assert kernels.LAUNCHES[name + "_vec"] > mid[name + "_vec"]
         assert kernels.LAUNCHES[name] == mid[name]
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("S,H,Gq,D", [(77, 3, 1, 8), (256, 2, 1, 72),
+                                      (130, 2, 3, 40), (300, 1, 2, 128)])
+def test_composed_seam_on_qkv_views_matches_rows(dev, S, H, Gq, D, bits, vec):
+    """The composed chain on strided q, k, v views of one projection
+    output (GQA: Gq q heads per kv head) equals the chain on their
+    contiguous row copies and its plain version, bit for bit: the scores,
+    and the output in (B, S, H, Gq, hd) order, one launch each."""
+    gen = torch.Generator(device=dev).manual_seed(S + D + bits)
+    B, G = 2, 4
+    qkv = (torch.randn(B, S, H * (Gq + 2), D, device=dev, generator=gen)
+           * 1.5).to(torch.bfloat16)
+    q = qkv[:, :, :H * Gq].reshape(B, S, H, Gq, D)
+    k, v = qkv[:, :, H * Gq:H * (Gq + 1)], qkv[:, :, H * (Gq + 1):]
+    qk, pv = _qkv_packs(dev, bits, G, S, gen)
+    gv = (torch.tensor([3, 1], dtype=torch.int32, device=dev)
+          .repeat_interleave(H * Gq) if vec else 2)
+    qk_fn, pv_fn = ((IB.int8_bmm_qk_vec, IB.int8_bmm_pv_vec) if vec
+                    else (IB.int8_bmm_qk, IB.int8_bmm_pv))
+    qka = (qk["s_q"], qk["s_k"], qk["scale"])
+    pva = (pv["s_v"], pv["scale1"], pv["scale2"])
+    before = dict(kernels.LAUNCHES)
+    scores = qk_fn(q, k, *qka, gv, bits=bits, alpha=D ** -0.5)
+    codes = SM.softmax_mrq_codes_vec(scores, pv["s1"], gv, bits=bits) \
+        if vec else SM.softmax_mrq_codes(scores, pv["s1"], gv, bits=bits)
+    out = pv_fn(codes, v, *pva, gv, bits=bits, out_dtype=torch.bfloat16)
+    sfx = "_vec" if vec else ""
+    assert {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+            if c != before[n]} == {"int8_bmm_qk" + sfx: 1,
+                                   "softmax_mrq_codes" + sfx: 1,
+                                   "int8_bmm_pv" + sfx: 1}
+    assert out.is_contiguous() and tuple(out.shape) == (B, S, H, Gq, D)
+    qr, kr, vr = (t.contiguous() for t in FA.flatten_heads(q, k, v))
+    rows = qk_fn(qr, kr, *qka, gv, bits=bits, alpha=D ** -0.5)
+    assert torch.equal(scores, rows)
+    assert torch.equal(scores, _plain(lambda: qk_fn(
+        q, k, *qka, gv, bits=bits, alpha=D ** -0.5)))
+    out_rows = pv_fn(codes, vr, *pva, gv, bits=bits,
+                     out_dtype=torch.bfloat16)
+    assert torch.equal(out, out_rows.reshape(B, H, Gq, S, D)
+                       .permute(0, 3, 1, 2, 4))
+    assert torch.equal(out, _plain(lambda: pv_fn(
+        codes, v, *pva, gv, bits=bits, out_dtype=torch.bfloat16)))
+
+
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar", "vec"])
+@pytest.mark.parametrize("bits", [8, 6, 4])
+def test_composed_serving_shape_bit_exact(dev, bits, vec):
+    """``ops.int8_attention`` on the (8, 256, 3, 16, 72) bf16 qkv views,
+    G = 10: B9a/B9c and B9b/B9d each equal their plain versions bit for
+    bit (``B9_vs_plain``, ``vec_vs_plain``: 0.0), the whole call equals
+    its plain composition, and an unmasked call is three launches."""
+    gen = torch.Generator(device=dev).manual_seed(bits + 10 * vec)
+    q, k, v = _qkv_views(dev, 8, 256, 16, 72, torch.bfloat16, gen)
+    qk, pv = _qkv_packs(dev, bits, 10, 256, gen)
+    tg = (torch.tensor([3, 7, 0, 9, 3, 7, 0, 9], dtype=torch.int32,
+                       device=dev) if vec else 4)
+    run = lambda: ops.int8_attention(q, k, v, qk, pv, scale=72 ** -0.5,
+                                     tgroup=tg)
+    before = sum(kernels.LAUNCHES.values())
+    out = run()
+    assert sum(kernels.LAUNCHES.values()) == before + 3
+    assert torch.equal(out, _plain(run))
+    gv = ops._groups(qk, tg, 128) if vec else 4
+    qk_fn, pv_fn = ((IB.int8_bmm_qk_vec, IB.int8_bmm_pv_vec) if vec
+                    else (IB.int8_bmm_qk, IB.int8_bmm_pv))
+    qka = (q, k, qk["s_q"], qk["s_k"], qk["scale"], gv)
+    scores = qk_fn(*qka, bits=bits, alpha=72 ** -0.5)
+    assert torch.equal(scores, _plain(lambda: qk_fn(
+        *qka, bits=bits, alpha=72 ** -0.5)))
+    codes = SM.softmax_mrq_codes(scores, pv["s1"], 4, bits=bits)
+    pva = (codes, v, pv["s_v"], pv["scale1"], pv["scale2"], gv)
+    o = pv_fn(*pva, bits=bits, out_dtype=torch.bfloat16)
+    assert torch.equal(o, _plain(lambda: pv_fn(*pva, bits=bits,
+                                               out_dtype=torch.bfloat16)))
+    assert TOLERANCES["B9_vs_plain"][0] == TOLERANCES["vec_vs_plain"][0] \
+        == 0.0
+
+
+def _old_codes(x, s, hi):
+    """The composed chain's former code pass (``codes_kernel``):
+    fminf(fmaxf(rintf(__fdiv_rn(x, s)), -hi), hi), on the card (torch's
+    f32 division is the IEEE one; fmax/fmin drop a NaN operand)."""
+    q = torch.round(x.float() / torch.full_like(x, s, dtype=torch.float32))
+    return torch.fmin(torch.fmax(q, torch.full_like(q, -hi)),
+                      torch.full_like(q, hi))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_composed_codes_equal_the_old_code_pass(dev, bits, dt):
+    """The codes B9a and B9b make in shared memory (``attn.cuh::sym_code``:
+    a * (1/s) and two FMA corrections) against the former pass's IEEE
+    divide and rint on every edge: quotients at and around 2^16, half-way
+    points, +-inf and NaN of both signs, and every bf16 value in range.
+    One-hot partners expose the codes: scores = q8 * k8 with k8 the
+    identity, out = c . v8 with c the identity, both at scale 1."""
+    half = 2 ** (bits - 1)
+    hi, D, s = half - 1, 32, 0.0123
+    edge = torch.tensor([65536 * s, -65536 * s, 65535.5 * s, -65535.5 * s,
+                         65537 * s, 131072 * s, float("inf"), float("-inf"),
+                         float("nan"), -float("nan"), (hi + 0.5) * s,
+                         -(hi + 0.5) * s, 0.5 * s, 1.5 * s, 2.5 * s, -2.5 * s,
+                         0.0, -0.0, 1e-30, -1e-30], device=dev)
+    allbf = torch.arange(-32768, 32768, dtype=torch.int32, device=dev) \
+        .to(torch.int16).view(torch.bfloat16).float()
+    allbf = allbf[(allbf.abs() < 4 * half * s) | ~torch.isfinite(allbf)]
+    x = torch.cat([edge, allbf])
+    x = torch.nn.functional.pad(x, (0, -x.numel() % D)).reshape(-1, D).to(dt)
+    M = x.shape[0]
+    one = lambda n, step: (torch.eye(n, D, device=dev) * step).to(dt)
+    steps = torch.tensor([[s]], device=dev)
+    unit = torch.ones(1, 1, device=dev)
+    want = _old_codes(x, s, hi)
+    # q coded: k the identity at its own step (k8 = 1 on the diagonal)
+    sc = IB.int8_bmm_qk(x[None], one(D, 0.5)[None], steps, unit * 0.5,
+                        unit, 0, bits=bits)[0]
+    assert torch.equal(sc, want), "q codes"
+    # k coded: q the identity
+    sc = IB.int8_bmm_qk(one(D, 0.5)[None], x[None], unit * 0.5, steps,
+                        unit, 0, bits=bits)[0]
+    assert torch.equal(sc.t(), want), "k codes"
+    # v coded: the codes the identity, region 1 at scale 1
+    codes = torch.eye(M, dtype=torch.int8, device=dev)[None]
+    out = IB.int8_bmm_pv(codes, x[None], steps, unit, unit, 0, bits=bits)[0]
+    assert torch.equal(out, want), "v codes"
+
+
+def test_composed_kernels_are_wgmma(dev):
+    """Both composed matmuls multiply with wgmma (SASS IGMMA) and hold no
+    mma.sync (IMMA, HMMA); the library holds no other kernel (no code
+    pre-pass)."""
+    from repro_torch.kernels import build
+    for kern in ("qk_kernel", "pv_kernel"):
+        counts = build.sass_counts("int8_bmm", kern)
+        assert counts["IGMMA"] > 0, (kern, counts)
+        assert counts["IMMA"] == 0 and counts["HMMA"] == 0, (kern, counts)
+    assert not build.sass_counts("int8_bmm", "codes_kernel")
 
 
 # -- the public kernel API: B11, B12, B13 and flash's boolean mask ----------
