@@ -18,7 +18,11 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              (fatal unless it holds wgmma and no mma.sync), and of the
              composed chain's matmuls (``csrc/int8_bmm.cu``: ptxas lines
              per instantiation, fatal on a spill in the serving ones;
-             SASS fatal unless wgmma and no mma.sync).
+             SASS fatal unless wgmma and no mma.sync), and of the
+             softmax-codes pass (``csrc/softmax_mrq.cu``: ptxas lines
+             per instantiation, fatal on a spill in the serving ones,
+             ``<f32|bf16 scores, codes, 8 columns a lane>``); the other
+             libraries' ptxas lines name their kernel instantiation.
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
@@ -52,7 +56,9 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              times (CUDA events) beside the least time the card could
              take (bytes at 3.35 TB/s, int8 operations at 1979 TOP/s,
              fp32 at 67 TFLOP/s), and the masked flash time beside the
-             unmasked one. The prologue pass alone
+             unmasked one; B11, B12 and B13's ms in the kernels line is
+             their device time (the profiler over 30 calls), their
+             wrapper time beside it. The prologue pass alone
              (``kernels/prologue.py::codes``) against its plain version
              at every int8 and packed-int4 serving shape, bf16 and f32,
              scalar and per-row groups: every code bit for bit. Then the
@@ -661,12 +667,18 @@ def int8_matmul_case(op, M, K, N, with_bias, dt, gen, timed):
         row.update(timed_row(run, 5, lib, nbytes, 2 * M * K * N, 0,
                              "int8_matmul", what,
                              "torch._int_mm + epilogue"))
-        from repro_torch.launch.gemm_times import device_ms
-        row["wrapper_ms"], row["ms"] = row["ms"], sum(
-            device_ms(run, 30).values())
-        log(f"  device time int8_matmul {what}: {row['ms']:.4f} ms (wrapper "
-            f"{row['wrapper_ms']:.4f} ms)")
+        device_row(row, run, "int8_matmul", what)
     return row
+
+
+def device_row(row, run, name, what):
+    """The row's ms becomes the call's device time (the profiler's kernel
+    durations over 30 calls); its wrapper time (CUDA events, the host's
+    enqueue included) stays beside it as wrapper_ms."""
+    from repro_torch.launch.gemm_times import device_ms
+    row["wrapper_ms"], row["ms"] = row["ms"], sum(device_ms(run, 30).values())
+    log(f"  device time {name} {what}: {row['ms']:.4f} ms (wrapper "
+        f"{row['wrapper_ms']:.4f} ms)")
 
 
 def softmax_mrq_case(dt, out_dt, bits, gen, timed):
@@ -694,6 +706,7 @@ def softmax_mrq_case(dt, out_dt, bits, gen, timed):
         row.update(timed_row(run, 3, lambda: torch.softmax(scores, dim=-1),
                              nbytes, 0, QDQ_FP32_PER_SCORE * R * C,
                              "softmax_mrq", what, "torch.softmax"))
+        device_row(row, run, "softmax_mrq", what)
     return row
 
 
@@ -729,6 +742,7 @@ def act_mrq_case(kind, shape, dt, bits, gen, timed):
         row.update(timed_row(run, 5, lib, 2 * n * x.element_size() + 8, 0,
                              GELU_MRQ_FP32_PER_ELEM * n, "act_mrq", what,
                              f"F.{kind}"))
+        device_row(row, run, "act_mrq", what)
     return row
 
 
@@ -1530,19 +1544,33 @@ def phase_entry_points():
     return launches
 
 
-def ptxas_lines(lib, kernel):
+def entry_name(symbol):
+    """A kernel's name from its mangled symbol, with its template arguments
+    as mangled: ``_ZN<n><namespace><n>gemm_kernelILb0EEEv...`` ->
+    ``gemm_kernelILb0EEEv...`` (the last name of the nested prefix)."""
+    i = 3 if symbol.startswith("_ZN") else 2
+    start = i
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        start, i = j, j + int(symbol[i:j])
+    return symbol[start:]
+
+
+def ptxas_lines(lib, kernel=""):
     """(instantiation, line) for ptxas's register, spill and C75xx lines
-    of the entry functions of ``lib``'s build whose names hold
-    ``kernel``."""
+    of the entry functions of ``lib``'s build whose names start with
+    ``kernel`` (every one by default)."""
     import re
 
     from repro_torch.kernels import build as kbuild
     fn = None
     for line in kbuild.BUILD_LOG.get(lib, "").splitlines():
-        m = re.search(rf"Compiling entry function '_Z\w*?({kernel}\w*)'",
-                      line)
-        if m or "Compiling entry function" in line:
-            fn = m.group(1) if m else None
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = entry_name(m.group(1))
+            fn = fn if fn.startswith(kernel) else None
             continue
         if fn and ("registers" in line or "spill" in line or "C75" in line):
             yield fn, line.strip()
@@ -1618,6 +1646,25 @@ def composed_ptxas():
         raise AssertionError(f"the composed matmuls spill: {spilled}")
 
 
+def softmax_ptxas():
+    """Phase 1 for the softmax-codes pass (``csrc/softmax_mrq.cu``):
+    ptxas's registers and spills of the serving instantiations
+    ``softmax_codes_kernel<scores, OUT, columns a lane>`` (B10a and B10b on
+    C = 256 rows of f32 or bf16 scores: ``<float|bf16, 0, 8>``), fatal on
+    a spill there, and any other instantiation's spill line."""
+    import re
+    spilled = []
+    for fn, line in ptxas_lines("softmax_mrq", "softmax_codes_kernel"):
+        serving = re.match(r"softmax_codes_kernelI(f|13__nv_bfloat16)Li0ELi8E",
+                           fn)
+        if serving or spill_bytes(line):
+            log(f"  ptxas {fn}: {line}")
+        if serving and spill_bytes(line):
+            spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"the softmax-codes pass spills: {spilled}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1632,12 +1679,12 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = kbuild.build_all()
     log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
-    for name, text in kbuild.BUILD_LOG.items():
-        if name in ("flash_attn_mrq", "int8_bmm"):   # by instantiation
+    for name in kbuild.BUILD_LOG:        # the rest below, with their gates
+        if name in ("flash_attn_mrq", "int8_bmm", "softmax_mrq"):
             continue
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "C75" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, line in ptxas_lines(name):
+            if not fn.startswith("prologue_"):
+                log(f"  ptxas {name} {fn}: {line}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1645,6 +1692,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     flash_ptxas()
     composed_ptxas()
+    softmax_ptxas()
     prologue_ptxas()
     for lib, kern in (("int8_fused", "gemm_kernel"),
                       ("int4_packed", "gemm4_kernel")):

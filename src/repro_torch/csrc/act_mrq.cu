@@ -9,7 +9,8 @@
 //   silu: h = x * (1 / (1 + expf(-x)))
 //   out  = h < 0 ? clip(rint(h / s_neg), -half, 0) * s_neg
 //                : clip(rint(h / s_pos), 0, half-1) * s_pos
-//   in f32 or bf16, same shape as x.
+//   in f32 or bf16, same shape as x; a NaN h (from a NaN x, or the GELU's
+//   and SiLU's -inf * 0 at x = -inf) gives NaN.
 //
 // What bounds it on the card: bytes. It is elementwise, a handful of fp32
 // operations and one tanhf or expf per element: at the DiT-XL/2 MLP's
@@ -46,10 +47,12 @@ __device__ __forceinline__ float act(float x) {
   return __fmul_rn(x, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x))));
 }
 
+// The clips keep a NaN h, as the reference's do (fmaxf would drop it).
 __device__ __forceinline__ float qdq(float h, float sn, float sp, float fhalf) {
   if (h < 0.f)
-    return __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(h, sn)), -fhalf), 0.f), sn);
-  return __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(h, sp)), 0.f), fhalf - 1.f), sp);
+    return __fmul_rn(fmin_nan(fmax_nan(rintf(__fdiv_rn(h, sn)), -fhalf), 0.f), sn);
+  return __fmul_rn(fmin_nan(fmax_nan(rintf(__fdiv_rn(h, sp)), 0.f), fhalf - 1.f),
+                   sp);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[VEC]) {

@@ -3,7 +3,8 @@
 // 1.5 x 2^23 add and the byte packing of the prologue pass
 // (csrc/prologue.cuh) and of the attention kernels (csrc/attn.cuh:
 // flash attention and the composed chain's matmuls, which code their
-// operands in shared memory); and the cp.async helpers.
+// operands in shared memory); the MRQ probability codes of flash and the
+// softmax-codes pass (mrq_code); and the cp.async helpers.
 //
 // Groups: g points at device int32 group indices read with a row stride
 // gs: gs = 0 reads g[0] for every row (one TGQ group per call), gs = 1
@@ -56,6 +57,47 @@ __device__ __forceinline__ float rint_div(float a, float b, float y) {
   const float q0 = __fmul_rn(a, y);
   if (!(fabsf(q0) < 65536.f)) return q0;
   return __fsub_rn(__fadd_rn(div_rn(a, b, y, q0), FMAGIC), FMAGIC);
+}
+
+// The MRQ code of score e of a row with denominator l (yl = 1/l): p =
+// e / l; region 1 (r1: p < thr = half * s1): clip(rint(p / s1), 0,
+// half-1) with y1 = 1/s1; region 2: clip(rint(p * half), 0, half), p *
+// half being p / s2 exactly (s2 = 1/half). p >= 0, so only the top clips.
+// Both quotients are correctly rounded (div_rn) where a code can turn on
+// them: e in [0, l], l in [1, 2^16], s1 at least 2^-100. Shared by flash
+// attention (csrc/flash_attn_mrq.cu) and the softmax-codes pass
+// (csrc/softmax_mrq.cu: B10a, B10b, B12).
+__device__ __forceinline__ int mrq_code(float e, float l, float yl, float s1,
+                                        float y1, float thr, float fhalf,
+                                        int half, bool& r1) {
+  const float p = div_rn(e, l, yl, __fmul_rn(e, yl));
+  r1 = p < thr;
+  const float q = r1 ? div_rn(p, s1, y1, __fmul_rn(p, y1)) : __fmul_rn(p, fhalf);
+  return min(rint_small(q), r1 ? half - 1 : half);
+}
+
+// mrq_code split by region into low bytes; the other region's is 0.
+__device__ __forceinline__ void mrq_codes(float e, float l, float yl,
+                                          float s1, float y1, float thr,
+                                          float fhalf, int half, int& c1,
+                                          int& c2) {
+  bool r1;
+  const int c = mrq_code(e, l, yl, s1, y1, thr, fhalf, half, r1);
+  c1 = r1 ? c : 0;
+  c2 = r1 ? 0 : c;
+}
+
+// max and min that return NaN where an operand is NaN (fmaxf and fminf
+// return the other operand): a clip that keeps a NaN, as the reference's.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // The low bytes of a, b, c, d as one word (a in the lowest byte).

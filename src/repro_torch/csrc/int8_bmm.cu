@@ -32,7 +32,8 @@
 //   (B, M, D) calls pass trivial ones), coded on their way into shared
 //   memory by the flash kernel's quotient (csrc/attn.cuh: sym_code,
 //   code8: a * (1/s) with two FMA corrections, equal to the IEEE divide's
-//   rint, saturation, +-inf and NaN included), and never reach device
+//   rint, saturation and +-inf included; NaN codes to 0, as the
+//   reference's int8 cast makes it), and never reach device
 //   memory as codes. The head dim is zero-padded to the 32-deep wgmma k
 //   step in shared memory only. B9b writes (B, Sq, Hk, G, hd), the order
 //   the proj linear reads, so no permute or copy follows.

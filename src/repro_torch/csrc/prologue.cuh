@@ -168,9 +168,12 @@ __device__ __forceinline__ void store_codes(const PArgs& a, long o,
   for (int i = 0; i < QC; ++i) {
     ca[i] = cb[i] = 0;
     if (!MRQ) {
+      // a NaN codes to 0: the clip keeps it, as the reference's does, and
+      // the int conversion makes it 0, as the reference's int8 cast
       const float q = __fsub_rn(__fadd_rn(rint_div(v[i], sa, ya), sb), fhalf);
-      if (i < n) ca[i] = (int)fminf(fmaxf(q, -fhalf), fhalf - 1.f);
+      if (i < n) ca[i] = (int)fmin_nan(fmax_nan(q, -fhalf), fhalf - 1.f);
     } else {
+      // a NaN takes region b's branch and codes to (0, 0) there
       const bool neg = v[i] < 0.f;
       const float r = rint_div(v[i], neg ? sa : sb, neg ? ya : yb);
       if (i < n && neg) ca[i] = (int)fminf(fmaxf(r, -fhalf), 0.f);

@@ -69,7 +69,8 @@ TOLERANCES = {
     "B10_vs_plain": (0.0, "B10a: the plain version takes the same max, the "
                      "same exp (the card's expf through torch.exp), sums "
                      "each row in the kernel's order (warp_rowsum) and "
-                     "divides as IEEE; the codes are then identical"),
+                     "divides as IEEE (the kernel's corrected quotients, "
+                     "div_rn, equal it); the codes are then identical"),
     "B3_mask_vs_plain": (0.0, "as B3: masked lanes get the same NEG_INF as "
                          "the ragged ones before the online max, in kernel "
                          "and plain version alike; a fully masked row then "

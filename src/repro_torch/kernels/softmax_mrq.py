@@ -10,7 +10,9 @@ s1[g]), 0, half-1)`` where ``p < half * s1[g]`` (region 1) and ``c =
 negated so its [0, half] codes fit a signed byte). Returns int8 codes of
 the scores' shape, which ``int8_bmm_pv`` consumes. CUDA tensors run the
 kernel of ``csrc/softmax_mrq.cu``, CPU tensors the plain version (whose
-row sum replays the kernel's order, ``ref.warp_rowsum``).
+row sum replays the kernel's order, ``ref.warp_rowsum``). A row whose sum
+is NaN (a NaN or +inf score, or only -inf) codes to 0 throughout, as the
+reference's int8 cast makes its NaN p; B12 gives NaN there.
 
 ``softmax_mrq_codes_vec`` (B10b) replaces ``::softmax_mrq_codes_vec``:
 ``gv`` is an int32 tensor of shape ``scores.shape[:-1]`` (one group per

@@ -29,21 +29,25 @@ into the chain's parts (``qk_kernel``, ``softmax_codes_kernel``,
 ``pv_kernel``, any ``codes_kernel`` pre-pass, and the torch glue: head
 copies and permutes), gives each kernel's bound (qk: q and k read once,
 the f32 scores written once, or its int8 products; B10: the scores read,
-the codes written, or 7 fp32 operations a score; pv: the codes and v
+the codes written, or 7 fp32 operations a score, each counted once, an
+expf or a divide as one; pv: the codes and v
 read, the output written, or its two int8 products) and the chain's
 (their sum: the scores and codes cross device memory by the reference's
 contract), and a sha256 of the call's output bytes, so a parent and a
 change can be held bit for bit across trees.
 
 ``--ablate`` times throwaway builds of the tree's ``csrc/flash_attn_mrq.cu``
-(with ``--composed``: of ``csrc/int8_bmm.cu``, ``COMPOSED_ABLATIONS``, on
-the composed call at bits 8)
+(with ``--composed``: of ``csrc/int8_bmm.cu`` and ``csrc/softmax_mrq.cu``,
+``COMPOSED_ABLATIONS``, on the composed call at bits 8)
 with one part switched off at a time (``ABLATIONS``: textual patches; the
 first six fit the ``mma.sync`` kernel of commit 73ac78a, run with
 ``--src`` on that tree unpacked by ``git archive``, the rest the
-one-launch wgmma kernel that replaced it); a patch whose text the source
-does not hold is reported and skipped. The outputs of those builds are
-wrong by construction: only their times are read.
+one-launch wgmma kernel that replaced it; the softmax pass's "3-pass"
+entries fit the kernel of commit e903e06); a patch may hit a shared
+header (``csrc/*.cuh``), which the variant then builds from its own
+copy, and a patch whose text the sources do not hold once is reported
+and skipped. The outputs of those builds are wrong by construction: only
+their times are read.
 
 ``--timeline`` (with ``--composed``: the P.V kernel's, ``COMPOSED_TIMELINE``:
 per kv tile when v landed and was coded, the codes landed and the
@@ -56,6 +60,11 @@ landed and were coded, and each consumer warpgroup's at which its q
 codes were done and, per kv tile, the k codes arrived, QK^T, the
 softmax codes and P.V were done, and the CTA ended. The stamps cost a
 few instructions each; only the order and the gaps are read.
+
+With ``--composed`` it also times B12 (``kernels.softmax_mrq``, the
+softmax-codes kernel with its dequantising epilogue) on scores of the
+composed call's shape, (32768, 256) at bits 8, f32 and bf16, in device
+time with a sha256 of each output.
 
 ``--src`` puts DIR first on the import path, so one script times another
 tree's kernels through the same entry point; run parent, change, change,
@@ -133,8 +142,7 @@ ABLATIONS = [
         "load_chunk(qr, 8 * ((lt >> 6) + 2 * i), D, vec, x[i]);",
         "for (int e = 0; e < 8; ++e) x[i][e] = (float)(lt + e);")]),
     ("q, k, v quantized without divides", [(
-        "const float q = fabsf(q0) < 65536.f ? div_rn(x, s, y, q0)\n"
-        "                                      : copysignf(65536.f, q0);",
+        "const float q = fabsf(q0) < 65536.f ? div_rn(x, s, y, q0) : q0;",
         "const float q = q0;")]),
     ("softmax codes without divides", [
         ("const float p = div_rn(e, l, yl, __fmul_rn(e, yl));",
@@ -425,46 +433,93 @@ def time_cases(reps: int = 30, cases=CASES, log=print):
     return rows
 
 
-# (name, [(text in the source, replacement)]): each switches one part of
-# the composed matmuls (csrc/int8_bmm.cu) off while keeping the rest alive
+# (name, library, [(text in the source, replacement)]): each switches one
+# part of the composed chain off while keeping the rest alive: the matmuls
+# (csrc/int8_bmm.cu) and the softmax-codes pass (csrc/softmax_mrq.cu, the
+# B10 entries: those marked "3-pass" fit its three-pass kernel of commit
+# e903e06, run with --src on that tree, the others the register kernel
+# that replaced it)
 COMPOSED_ABLATIONS = [
-    ("qk: no wgmma", [
+    ("qk: no wgmma", "int8_bmm", [
         ("wgmma_ss0(acc, dq, dk);",
          "for (int i = 0; i < 64; ++i) acc[i] = t + i;"),
         ("for (int kk = 1; kk < NKC; ++kk) wgmma_ss(acc, dq + 2 * kk, "
          "dk + 2 * kk);", "")]),
-    ("qk: no score stores", [(
+    ("qk: no score stores", "int8_bmm", [(
         "            *reinterpret_cast<uint4*>(static_cast<uint8_t*>(a.out)\n"
         "                + (((long)b * M + m) * N + n0) * osz + 16 * c) =\n"
         "                *reinterpret_cast<const uint4*>(ys + rr * yp + 16 * c);",
         "            asm volatile(\"\" :: \"r\"(*reinterpret_cast<const "
         "unsigned*>(ys + rr * yp + 16 * c)));")]),
-    ("qk: q and k staged but not coded", [(
+    ("qk: q and k staged but not coded", "int8_bmm", [(
         "      w = code8(x, s, y, hi);",
         "      w = make_uint2(__float_as_uint(x[0]), __float_as_uint(x[7]));")]),
-    ("pv: no wgmma", [(
+    ("pv: no wgmma", "int8_bmm", [(
         "        wgmma_rs(acc1[hh], p[0], d);\n"
         "        wgmma_rs(acc2[hh], p[1], d);",
         "        acc1[hh][kc] += (int)p[0][0];\n"
         "        acc2[hh][kc] += (int)p[1][1];")]),
-    ("pv: v staged but not coded", [(
+    ("pv: v staged but not coded", "int8_bmm", [(
         "w[j] = n < N ? code8(x, sv, yv, hi) : make_uint2(0u, 0u);",
         "w[j] = make_uint2(__float_as_uint(x[0]), __float_as_uint(x[7]));")]),
-    ("pv: no codes loads", [(
+    ("pv: no codes loads", "int8_bmm", [(
         "        cp_async16(tp + r * PP + 16 * j,\n"
         "                   cb + (long)min(m, M - 1) * N + min(n, N - 16),\n"
         "                   m < M && n < N);",
         "        (void)tp;")]),
-    ("pv: no v loads", [(
+    ("pv: no v loads", "int8_bmm", [(
         "        cp_async16(raw + r * rb + 16 * raw_slot<TX>(c, r, cpc),",
         "        if (false) cp_async16(raw + r * rb + 16 * raw_slot<TX>(c, r, "
         "cpc),")]),
-    ("pv: no output stores", [(
+    ("pv: no output stores", "int8_bmm", [(
         "        *reinterpret_cast<uint4*>(static_cast<uint8_t*>(a.out)\n"
         "                                  + (ob + grow * a.os[3]) * osz + 16 * c) =\n"
         "            *reinterpret_cast<const uint4*>(ys + r * L::YROW + 16 * c);",
         "        asm volatile(\"\" :: \"r\"(*reinterpret_cast<const unsigned*>("
         "ys + r * L::YROW + 16 * c)));")]),
+    ("B10 3-pass: no score loads", "softmax_mrq", [
+        ("for (int j = lane; j < C; j += 32) m = fmaxf(m, ldx(xr, j));",
+         "for (int j = lane; j < C; j += 32) m = fmaxf(m, (float)((j * 7) & 15));"),
+        ("l = __fadd_rn(l, expf(__fsub_rn(ldx(xr, j), m)));",
+         "l = __fadd_rn(l, expf(__fsub_rn((float)((j * 7) & 15), m)));"),
+        ("const float p = __fdiv_rn(expf(__fsub_rn(ldx(xr, j), m)), l);",
+         "const float p = __fdiv_rn(expf(__fsub_rn((float)((j * 7) & 15), m)), "
+         "l);")]),
+    ("B10 3-pass: one expf (the codes pass without)", "softmax_mrq", [
+        ("const float p = __fdiv_rn(expf(__fsub_rn(ldx(xr, j), m)), l);",
+         "const float p = __fdiv_rn(__fsub_rn(ldx(xr, j), m), l);")]),
+    ("B10 3-pass: no expf", "softmax_mrq", [
+        ("const float p = __fdiv_rn(expf(__fsub_rn(ldx(xr, j), m)), l);",
+         "const float p = __fdiv_rn(__fsub_rn(ldx(xr, j), m), l);"),
+        ("l = __fadd_rn(l, expf(__fsub_rn(ldx(xr, j), m)));",
+         "l = __fadd_rn(l, __fsub_rn(ldx(xr, j), m));")]),
+    ("B10 3-pass: no divides", "softmax_mrq", [
+        ("const float p = __fdiv_rn(expf(__fsub_rn(ldx(xr, j), m)), l);",
+         "const float p = __fmul_rn(expf(__fsub_rn(ldx(xr, j), m)), l);"),
+        ("if (p < thr) c = (int)fminf(fmaxf(rintf(__fdiv_rn(p, s1g)), 0.f), hi);",
+         "if (p < thr) c = (int)fminf(fmaxf(rintf(__fmul_rn(p, s1g)), 0.f), hi);"),
+        ("else c = -(int)fminf(fmaxf(rintf(__fdiv_rn(p, s2)), 0.f), fhalf);",
+         "else c = -(int)fminf(fmaxf(rintf(__fmul_rn(p, s2)), 0.f), fhalf);")]),
+    ("B10 3-pass: no code stores", "softmax_mrq", [
+        ("static_cast<int8_t*>(out)[row * C + j] = (int8_t)c;",
+         "if (half < 0) static_cast<int8_t*>(out)[row * C + j] = (int8_t)c;")]),
+    ("B10: no score loads", "softmax_mrq", [
+        ("for (int j = 0; j < CPL; ++j) e[j] = ldx(xr, lane + 32 * j);",
+         "for (int j = 0; j < CPL; ++j) e[j] = (float)(((lane + 32 * j) * 7) "
+         "& 15);")]),
+    ("B10: no expf", "softmax_mrq", [
+        ("e[j] = expf(__fsub_rn(e[j], m));", "e[j] = __fsub_rn(e[j], m);")]),
+    ("B10: no divides", "softmax_mrq", [
+        ("const float p = div_rn(e, l, yl, __fmul_rn(e, yl));",
+         "const float p = __fmul_rn(e, yl);"),
+        ("const float q = r1 ? div_rn(p, s1, y1, __fmul_rn(p, y1)) : "
+         "__fmul_rn(p, fhalf);",
+         "const float q = __fmul_rn(p, r1 ? y1 : fhalf);")]),
+    ("B10: no code stores (staged in shared memory)", "softmax_mrq", [
+        ("for (int i = 0; i < LB / W; ++i) dst[lane + 32 * i] = "
+         "src[lane + 32 * i];",
+         "for (int i = 0; i < LB / W; ++i) if (a.half < 0) "
+         "dst[lane + 32 * i] = src[lane + 32 * i];")]),
 ]
 
 COMPOSED_CASES = [("composed bits 8", 8, False),
@@ -476,6 +531,8 @@ COMPOSED_CASES = [("composed bits 8", 8, False),
 PARTS = {"qk_kernel": "qk", "softmax_codes_kernel": "softmax",
          "pv_kernel": "pv", "codes_kernel": "codes pre-pass"}
 CODES_FP32_PER_SCORE = 7     # B10: max, sub, exp, sum, 2 divides, round
+                             # (each one operation; the instructions that
+                             # issue them are about 30 a score)
 
 
 def composed_bounds():
@@ -528,61 +585,117 @@ def time_composed(reps: int = 30, cases=COMPOSED_CASES, log=print):
     return rows
 
 
-def ablate(reps: int, log=print, composed=False):
-    """Throwaway builds of the tree's flash kernel (``composed``: of its
-    composed matmuls, ``csrc/int8_bmm.cu``) with one part switched off
-    each (``ABLATIONS``, ``COMPOSED_ABLATIONS``), timed on B3 bits 8 (the
-    composed call at bits 8) beside the unpatched build."""
+def _patched(lib: str, patches):
+    """{file name: text} of ``csrc/<lib>.cu`` and the shared headers with
+    every (old, new) of ``patches`` applied where its text stands (once in
+    all of them), or None where a text does not."""
     from repro_torch.kernels import build
-    lib = "int8_bmm" if composed else "flash_attn_mrq"
-    src = (build.CSRC / f"{lib}.cu").read_text()
+    files = {f"{lib}.cu": (build.CSRC / f"{lib}.cu").read_text()}
+    files.update({p.name: p.read_text()
+                  for p in sorted(build.CSRC.glob("*.cuh"))})
+    for old, new in patches:
+        hits = [f for f, text in files.items() if old in text]
+        if len(hits) != 1 or files[hits[0]].count(old) != 1:
+            return None
+        files[hits[0]] = files[hits[0]].replace(old, new)
+    return files
+
+
+def ablate(reps: int, log=print, composed=False):
+    """Throwaway builds of the tree's flash kernel (``composed``: of the
+    composed chain's libraries, ``csrc/int8_bmm.cu`` and
+    ``csrc/softmax_mrq.cu``) with one part switched off each
+    (``ABLATIONS``, ``COMPOSED_ABLATIONS``; a patch may hit a shared
+    header, which the variant then builds from its own copy), timed on B3
+    bits 8 (the composed call at bits 8) beside the tree's own build."""
+    from repro_torch.kernels import build
+    entries = (COMPOSED_ABLATIONS if composed
+               else [(n, "flash_attn_mrq", p) for n, p in ABLATIONS])
     out_dir = build.BUILD_DIR / "ablate"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    variants = [("unpatched", src)]
-    for name, patches in COMPOSED_ABLATIONS if composed else ABLATIONS:
-        text = src
-        missing = [old for old, _ in patches if text.count(old) != 1]
-        if missing:
+    variants = []
+    for name, lib, patches in entries:
+        files = _patched(lib, patches)
+        if files is None:
             log(f"  ablation '{name}': source does not hold its text once; "
                 "skipped")
             continue
-        for old, new in patches:
-            text = text.replace(old, new)
-        variants.append((name, text))
+        variants.append((name, lib, files))
     procs = []
-    for i, (name, text) in enumerate(variants):
-        cu = out_dir / f"{lib}_v{i}.cu"
-        cu.write_text(text)
-        so = out_dir / f"lib{lib}_v{i}.so"
-        procs.append((name, so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-             str(so), str(cu)], stdout=subprocess.PIPE,
+    for i, (name, lib, files) in enumerate(variants):
+        vdir = out_dir / f"v{i}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():
+            (vdir / fname).write_text(text)
+        so = vdir / f"lib{lib}.so"
+        procs.append((name, lib, so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(vdir), "-o",
+             str(so), str(vdir / f"{lib}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
+    time_row = ((lambda: time_composed(reps, COMPOSED_CASES[:1],
+                                       log=lambda *a: None)[0])
+                if composed else
+                (lambda: time_cases(reps, CASES[:1], log=lambda *a: None)[0]))
     rows = []
-    build.lib(lib)                       # the signatures' home
-    saved = build._LIBS[lib]
-    quiet = lambda *a: None
-    try:
-        for name, so, p in procs:
+    for name, lib, so, p in [("unpatched", None, None, None)] + procs:
+        spills = []
+        if p is not None:
             log_text, _ = p.communicate()
             if p.returncode != 0:
                 raise RuntimeError(f"ablation '{name}' failed to build:\n"
                                    f"{log_text}")
             spills = [int(x) for x in re.findall(
                 r"(\d+) bytes spill stores", log_text)]
+            saved = build.lib(lib)           # the signatures' home
             _use(so, lib)
-            row = (time_composed(reps, COMPOSED_CASES[:1], log=quiet) if composed
-                   else time_cases(reps, CASES[:1], log=quiet))[0]
-            row["ablation"] = name
-            row["max_spill_bytes"] = max(spills, default=0)
-            rows.append(row)
-            parts = row["by_part"] if composed else row["by_kernel"]
-            log(f"  ablation {name:<42} device {row['device_ms']:.4f} ms "
-                f"(spill stores <= {row['max_spill_bytes']} B; "
-                + ", ".join(f"{k} {t:.4f}" for k, t in sorted(
-                    parts.items(), key=lambda kv: -kv[1])) + ")")
-    finally:
-        build._LIBS[lib] = saved
+        try:
+            row = time_row()
+        finally:
+            if p is not None:
+                build._LIBS[lib] = saved
+        row["ablation"] = name
+        row["max_spill_bytes"] = max(spills, default=0)
+        rows.append(row)
+        parts = row["by_part"] if composed else row["by_kernel"]
+        log(f"  ablation {name:<48} device {row['device_ms']:.4f} ms "
+            f"(spill stores <= {row['max_spill_bytes']} B; "
+            + ", ".join(f"{k} {t:.4f}" for k, t in sorted(
+                parts.items(), key=lambda kv: -kv[1])) + ")")
+    return rows
+
+
+def time_b12(reps: int = 30, log=print):
+    """B12 (``kernels.softmax_mrq``: the softmax-codes kernel with its
+    dequantising epilogue) on scores of the composed call's shape, (B * H *
+    N, N) = (32768, 256), bits 8: f32 in and out, bf16 in and out. One row
+    each: device ms (the profiler over ``reps`` calls), wrapper ms, the
+    bytes bound and the output's sha256."""
+    import hashlib
+
+    import torch
+    from repro_torch import kernels
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    R = B * H * N
+    s1 = torch.tensor(8.0 / N / 128, device="cuda")
+    scores = torch.randn(R, N, device="cuda", generator=gen) * 4
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = scores.to(dt)
+        run = lambda: kernels.softmax_mrq(x, s1, bits=8, out_dtype=dt)
+        out = run()
+        torch.cuda.synchronize()
+        dev, launches = device_ms(run, reps)
+        nbytes = 2 * R * N * x.element_size() + 4
+        row = {"case": f"B12 {str(dt)[6:]}", "device_ms": sum(dev.values()),
+               "by_kernel": dev, "launches": launches,
+               "wrapper_ms": wrapper_ms(run, reps),
+               "bound_ms": bound(nbytes, 0, 0)[0],
+               "sha256": hashlib.sha256(out.contiguous().view(torch.uint8)
+                                        .cpu().numpy().tobytes()).hexdigest()}
+        rows.append(row)
+        log(f"  {row['case']:<12} device {row['device_ms']:.4f} ms in "
+            f"{launches:.1f} launches; wrapper {row['wrapper_ms']:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms (bytes); out sha256 "
+            f"{row['sha256'][:16]}")
     return rows
 
 
@@ -612,7 +725,7 @@ def main(argv=None) -> None:
     if args.timeline:
         timeline(composed=args.composed)
         return
-    rows = (time_composed(args.reps) if args.composed
+    rows = (time_composed(args.reps) + time_b12(args.reps) if args.composed
             else time_cases(args.reps))
     if args.ablate:
         rows += ablate(args.reps, composed=args.composed)

@@ -28,10 +28,16 @@ per-row-group siblings B9c, B10b and B9d held the same three ways (GQA
 included: no kv copy), the qkv-view seam equal to contiguous rows and to
 the plain versions, the serving shape bit for bit in three launches, the
 codes made in shared memory equal to the former code pass's IEEE divide
-on every edge (2^16 saturation, +-inf, NaN), both matmuls on wgmma,
+on every edge (2^16 saturation, +-inf; NaN codes to 0, the reference's),
+B10a/B10b over row lengths 1 to 1024 (the register instantiations and the
+general one) at bits 8, 6 and 4, both matmuls on wgmma,
 ``ops.int8_attention`` on the card equal to its plain composition and
 within ``flash_vs_composed_atol`` of flash, and a refused launch or
 failed build raising ``KernelError``.
+
+NaN and +-inf inputs reach every kernel that codes or quantizes them
+(the prologue pass, flash's seam, the composed chain, B10, B12, B13): each
+equals its plain version there too.
 
 The public kernel API: B11 ``int8_matmul`` over the reference's matmul
 shape sweep, B12 ``softmax_mrq`` over its row lengths and B13 ``act_mrq``
@@ -412,6 +418,31 @@ def _plain(fn):
         return fn()
 
 
+def _same(a, b):
+    """Equal dtype, shape and values, a NaN equal to a NaN."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def _non_finite_rows(x):
+    """A copy of (..., C) ``x`` whose first rows hold a NaN, a +inf, a
+    -inf among finite scores, only -inf, and both infinities (as many of
+    these as there are rows)."""
+    x = x.clone()
+    r = x.reshape(-1, x.shape[-1])
+    C, n = r.shape[-1], r.shape[0]
+    fills = [lambda row: row.__setitem__(C // 2, float("nan")),
+             lambda row: row.__setitem__(C - 1, float("inf")),
+             lambda row: row.__setitem__(0, -float("inf")),
+             lambda row: row.fill_(-float("inf")),
+             lambda row: (row.__setitem__(0, float("inf")),
+                          row.__setitem__(C - 1, -float("inf")))]
+    for i, fill in enumerate(fills[:n]):
+        fill(r[i])
+    return x
+
+
 @pytest.mark.parametrize("bits", [8, 6, 4])
 @pytest.mark.parametrize("B,M,S,D,rep", [(3, 77, 77, 40, 1),
                                          (2, 300, 300, 72, 2),
@@ -428,6 +459,10 @@ def _plain(fn):
 def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
     q, k, v, qk, s1, pv = _composed_case(dev, B, M, S, D, bits, 3,
                                          M + S + D + bits, rep)
+    q[0, M // 2, D - 1] = float("nan")        # each codes as the reference
+    k[-1, S - 1, 0] = float("inf")
+    v[0, 0, D // 2] = -float("inf")
+    v[-1, S // 2, 0] = float("nan")
     for dt in (torch.float32, torch.bfloat16):
         qd, kd, vd = (t.to(dt) for t in (q, k, v))
         before = dict(kernels.LAUNCHES)
@@ -437,7 +472,8 @@ def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
         qk_run = lambda: IB.int8_bmm_qk(qd, kd, *qk, 1, bits=bits)
         scores = qk_run()
         assert torch.equal(scores, _plain(qk_run)), (dt, "B9a")
-        for sc in (scores, scores.to(torch.bfloat16)):
+        for sc in (scores, scores.to(torch.bfloat16),
+                   _non_finite_rows(scores)):
             sm_run = lambda: SM.softmax_mrq_codes(sc, s1, 1, bits=bits)
             codes = sm_run()
             assert torch.equal(codes, _plain(sm_run)), (dt, sc.dtype, "B10a")
@@ -449,7 +485,7 @@ def test_composed_kernels_match_plain_ragged(dev, bits, B, M, S, D, rep):
         assert out.shape == (B * rep, M, D) and torch.isfinite(out).all()
         after = {n: kernels.LAUNCHES[n] - before[n] for n in before}
         assert {n: c for n, c in after.items() if c} == {
-            "int8_bmm_qk": 2, "softmax_mrq_codes": 3, "int8_bmm_pv": 1}
+            "int8_bmm_qk": 2, "softmax_mrq_codes": 4, "int8_bmm_pv": 1}
     assert (TOLERANCES["B9_vs_plain"][0], TOLERANCES["B10_vs_plain"][0]) \
         == (0.0, 0.0)
 
@@ -696,10 +732,12 @@ def test_composed_serving_shape_bit_exact(dev, bits, vec):
 def _old_codes(x, s, hi):
     """The composed chain's former code pass (``codes_kernel``):
     fminf(fmaxf(rintf(__fdiv_rn(x, s)), -hi), hi), on the card (torch's
-    f32 division is the IEEE one; fmax/fmin drop a NaN operand)."""
+    f32 division is the IEEE one), except that a NaN codes to 0 as in the
+    reference (``sym_quantize_int8_ref``), where fmax/fmin read -hi."""
     q = torch.round(x.float() / torch.full_like(x, s, dtype=torch.float32))
-    return torch.fmin(torch.fmax(q, torch.full_like(q, -hi)),
-                      torch.full_like(q, hi))
+    q = torch.fmin(torch.fmax(q, torch.full_like(q, -hi)),
+                   torch.full_like(q, hi))
+    return torch.where(torch.isnan(x.float()), torch.zeros_like(q), q)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -708,7 +746,8 @@ def test_composed_codes_equal_the_old_code_pass(dev, bits, dt):
     """The codes B9a and B9b make in shared memory (``attn.cuh::sym_code``:
     a * (1/s) and two FMA corrections) against the former pass's IEEE
     divide and rint on every edge: quotients at and around 2^16, half-way
-    points, +-inf and NaN of both signs, and every bf16 value in range.
+    points, +-inf and NaN of both signs (code 0, the reference's), and
+    every bf16 value in range.
     One-hot partners expose the codes: scores = q8 * k8 with k8 the
     identity, out = c . v8 with c the identity, both at scale 1."""
     half = 2 ** (bits - 1)
@@ -793,10 +832,11 @@ def test_int8_matmul_kernel_matches_plain(dev, M, K, N):
 def test_softmax_mrq_kernel_matches_plain(dev, shape, bits):
     """B12 bit for bit against its plain version (the reference's row
     lengths 16, 64, 32, 100 and longer ones), f32 and bf16 scores and out,
-    two steps; one launch per call."""
+    two steps, rows with a NaN or +-inf (a NaN row sum: NaN out, as the
+    plain version); one launch per call."""
     g = torch.Generator(device=dev).manual_seed(sum(shape) + bits)
     half = 2 ** (bits - 1)
-    s = torch.randn(shape, device=dev, generator=g) * 4
+    s = _non_finite_rows(torch.randn(shape, device=dev, generator=g) * 4)
     for s1 in (0.25 / half, 8.0 / shape[-1] / half):
         for dt in (torch.float32, torch.bfloat16):
             for out_dt in (torch.float32, torch.bfloat16):
@@ -806,8 +846,44 @@ def test_softmax_mrq_kernel_matches_plain(dev, shape, bits):
                 out = run()
                 assert kernels.LAUNCHES["softmax_mrq"] == before + 1
                 assert out.dtype == out_dt and out.shape == s.shape
-                assert torch.equal(out, _plain(run)), (s1, dt, out_dt)
+                assert _same(out, _plain(run)), (s1, dt, out_dt)
+                assert bool(torch.isnan(out.reshape(-1, shape[-1])[0]).all())
     assert TOLERANCES["B12_vs_plain"][0] == 0.0
+
+
+@pytest.mark.parametrize("bits", [8, 6, 4])
+@pytest.mark.parametrize("C", [1, 31, 32, 33, 255, 256, 257, 1024])
+def test_softmax_codes_kernel_sweep_matches_plain(dev, C, bits):
+    """B10a and B10b (the register instantiations at C = 32, 256 and 1024,
+    the general one at the other row lengths) bit for bit against their
+    plain versions: f32 and bf16 scores, a scalar group and per-slot
+    groups (one per batch*head row, entries outside [0, G) clamped), and
+    rows with a NaN or +-inf, whose codes are all 0."""
+    G, BH, Sq = 5, 6, 37
+    half = 2 ** (bits - 1)
+    gen = torch.Generator(device=dev).manual_seed(C + bits)
+    scores = _non_finite_rows(
+        torch.randn(BH, Sq, C, device=dev, generator=gen) * 4)
+    rate = 1.0 + 0.1 * torch.rand(G, 1, device=dev, generator=gen)
+    s1 = torch.clamp(rate * (8.0 / C / half), 1.0 / (half * half * 8),
+                     1.0 / half)
+    gv = torch.tensor([0, 4, 2, -1, 7, 3], dtype=torch.int32, device=dev)
+    before = dict(kernels.LAUNCHES)
+    for dt in (torch.float32, torch.bfloat16):
+        sc = scores.to(dt)
+        for run in (lambda: SM.softmax_mrq_codes(sc, s1, 3, bits=bits),
+                    lambda: SM.softmax_mrq_codes_vec(sc, s1, gv, bits=bits)):
+            codes = run()
+            assert codes.dtype == torch.int8 and codes.shape == sc.shape
+            assert torch.equal(codes, _plain(run)), dt
+            rows = codes.reshape(-1, C)
+            assert not rows[[0, 1, 3, 4]].any(), dt
+            if C >= 32:
+                assert bool((rows > 0).any() and (rows < 0).any()), dt
+    assert {n: c - before[n] for n, c in kernels.LAUNCHES.items()
+            if c != before[n]} == {"softmax_mrq_codes": 2,
+                                   "softmax_mrq_codes_vec": 2}
+    assert TOLERANCES["B10_vs_plain"][0] == 0.0
 
 
 @pytest.mark.parametrize("kind", ["gelu", "silu"])
@@ -817,10 +893,14 @@ def test_softmax_mrq_kernel_matches_plain(dev, shape, bits):
 def test_act_mrq_kernel_matches_plain(dev, kind, bits, shape):
     """B13 bit for bit against its plain version over the reference's
     shape sweep (and a 7-element tail), f32 and bf16 in and out, and on a
-    view that starts off the 16-byte boundary (the unvectorised path)."""
+    view that starts off the 16-byte boundary (the unvectorised path);
+    NaN, +inf and -inf among the inputs (NaN, +(h-1) s_pos and NaN out:
+    the activation makes -inf * 0)."""
     g = torch.Generator(device=dev).manual_seed(bits + shape[-1])
     half = 2 ** (bits - 1)
     x = torch.randn(shape, device=dev, generator=g) * 3
+    x.view(-1)[1:4] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf")], device=dev)
     sn, sp = 0.17 / half, torch.tensor(6.0 / half, device=dev)
     for dt in (torch.float32, torch.bfloat16):
         for out_dt in (torch.float32, torch.bfloat16):
@@ -830,12 +910,13 @@ def test_act_mrq_kernel_matches_plain(dev, kind, bits, shape):
             out = run()
             assert kernels.LAUNCHES["act_mrq"] == before + 1
             assert out.dtype == out_dt and out.shape == x.shape
-            assert torch.equal(out, _plain(run)), (dt, out_dt)
+            assert _same(out, _plain(run)), (dt, out_dt)
+            assert bool(torch.isnan(out.reshape(-1)[1]))
     flat = x.reshape(-1)
     if flat.numel() > 8:
         off = flat[1:]                     # 4 bytes past the allocation
         run = lambda: kernels.act_mrq(off, 0.005, 0.03, bits=bits, kind=kind)
-        assert torch.equal(run(), _plain(run))
+        assert _same(run(), _plain(run))
     assert TOLERANCES["B13_vs_plain"][0] == 0.0
 
 
@@ -1140,9 +1221,16 @@ def _qkv_views(dev, B, S, H, hd, dt, gen):
 def test_flash_seam_on_qkv_views_matches_plain(dev, D, S, bits, dt):
     """``ops.flash_attention`` on the strided q, k, v views of a qkv
     projection output (the serving seam; bits 4 runs B3b): one launch,
-    output in (B, S, H, 1, hd) order, bit for bit the plain version's."""
+    output in (B, S, H, 1, hd) order, bit for bit the plain version's,
+    with a NaN and +-inf among q, k and v (each codes as the reference:
+    NaN to 0, +-inf to +-(h-1))."""
     gen = torch.Generator(device=dev).manual_seed(D + S + bits)
     q, k, v = _qkv_views(dev, 2, S, 3, D, dt, gen)
+    q[0, S // 2, 1, 0, D - 1] = float("nan")
+    k[1, 0, 2, 0] = float("inf")
+    k[0, S - 1, 0, D // 2] = float("nan")
+    v[1, S // 3, 0, 0] = -float("inf")
+    v[0, 1, 1, D - 1] = float("nan")
     qk, pv = _qkv_packs(dev, bits, 4, S, gen)
     name = "flash_attn_mrq" + ("_packed_kv" if bits == 4 else "")
     run = lambda: ops.flash_attention(q, k, v, qk, pv, scale=D ** -0.5,
@@ -1153,6 +1241,7 @@ def test_flash_seam_on_qkv_views_matches_plain(dev, D, S, bits, dt):
     assert out.is_contiguous() and tuple(out.shape) == (2, S, 3, 1, D)
     with kernels.plain_on_cuda():
         ref = run()
+    assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max() <= \
         TOLERANCES["B3_vs_plain"][0]
 
@@ -1345,7 +1434,9 @@ def test_prologue_pass_matches_plain(dev, M, K, bits, mrq):
     strided chunk views of a bf16 or f32 (B, 6K) output, ps off and on,
     a scalar group and a per-row vector with out-of-range entries, in
     the int8 family's layout (bits 8, 6) and the int4 family's (bits 4,
-    K groups of 16 and 40 or 256). Rows without norm_mod carry +-inf."""
+    K groups of 16 and 40 or 256). The x carries a NaN and +-inf (with
+    norm_mod they make their rows' statistics NaN): each codes as the
+    reference, NaN to 0 (affine) and (0, 0) (MRQ)."""
     gen = torch.Generator(device=dev).manual_seed(M + K + bits + mrq)
     x, s_a, s_b, ada, ps, gv, bv = _prologue_inputs(dev, M, K, bits, mrq,
                                                     gen)
@@ -1357,10 +1448,10 @@ def test_prologue_pass_matches_plain(dev, M, K, bits, mrq):
         for xdt in (torch.float32, torch.bfloat16):
             for mdt in (None, torch.bfloat16, torch.float32):
                 xx = x.clone()
+                xx[M // 2, K // 2] = float("nan")
+                xx[0, 0], xx[-1, -1] = float("inf"), -float("inf")
                 nm = None
-                if mdt is None:
-                    xx[0, 0], xx[-1, -1] = float("inf"), -float("inf")
-                else:
+                if mdt is not None:
                     nm = torch.chunk(ada.to(mdt), 6, dim=-1)[:2]
                 xx = xx.to(xdt)
                 for p in (None, ps):
