@@ -21,8 +21,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              SASS fatal unless wgmma and no mma.sync), and of the
              softmax-codes pass (``csrc/softmax_mrq.cu``: ptxas lines
              per instantiation, fatal on a spill in the serving ones,
-             ``<f32|bf16 scores, codes, 8 columns a lane>``); the other
-             libraries' ptxas lines name their kernel instantiation.
+             ``<f32|bf16 scores, codes, 8 columns a lane>``), and of B13
+             (``csrc/act_mrq.cu``: ptxas lines per instantiation, fatal on
+             a spill in the serving ``<bf16, bf16, GELU>`` and ``<f32,
+             f32, GELU>``, whose SASS instructions an element it prints);
+             the other libraries' ptxas lines name their kernel
+             instantiation.
 2. kernels — each kernel against its plain PyTorch version on the card,
              at the DiT-XL/2 serving shapes (microbatch 4 -> CFG 2B = 8,
              M = 2048 rows), f32 and bf16 inputs, with and without the
@@ -47,7 +51,8 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              (f32 and bf16 out, with and without bias), B12 softmax_mrq
              on (32768, 256) scores (f32 and bf16, bits 8 and 6), B13
              act_mrq (GELU on fc1's (2048, 4608) output, SiLU on the
-             (8, 1152) adaLN input; bf16 and f32, bits 8 and 6), and the
+             (8, 1152) adaLN input; bf16 and f32, bits 8 and 6; every
+             output's bits, signed zeros included, NaN as NaN), and the
              masked B3, B3b, B8 (bits 8 and 4 packed; causal, random with
              fully masked rows, ragged Skv 77 with a padding mask, GQA),
              each also within flash_vs_composed_atol of the masked
@@ -58,7 +63,8 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              fp32 at 67 TFLOP/s), and the masked flash time beside the
              unmasked one; B11, B12 and B13's ms in the kernels line is
              their device time (the profiler over 30 calls), their
-             wrapper time beside it. The prologue pass alone
+             wrapper time beside it; B13's library ms is F.gelu's device
+             time. The prologue pass alone
              (``kernels/prologue.py::codes``) against its plain version
              at every int8 and packed-int4 serving shape, bf16 and f32,
              scalar and per-row groups: every code bit for bit. Then the
@@ -618,6 +624,17 @@ def check_plain(name, out, ref, key, what):
     return max_err
 
 
+def bit_mismatches(out, ref):
+    """Outputs whose bits differ from the plain version's (signed zeros
+    included, a NaN equal to a NaN); every output if dtype or shape do."""
+    import torch
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        return out.numel()
+    iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[out.dtype]
+    nan = torch.isnan(out) & torch.isnan(ref)
+    return int(((out.view(iv) != ref.view(iv)) & ~nan).sum())
+
+
 def timed_row(run, plain_reps, lib, nbytes, i8_ops, f32_ops, name, what,
               lib_name):
     """Kernel, plain-version and library-call times (CUDA events) beside
@@ -715,8 +732,9 @@ ACT_CASES = [  # (kind, shape): fc1's output into the GELU; the adaLN input
 
 
 def act_mrq_case(kind, shape, dt, bits, gen, timed):
-    """B13 against its plain version; ``F.gelu(approximate="tanh")`` /
-    ``F.silu`` are the library calls."""
+    """B13 against its plain version, bit for bit;
+    ``F.gelu(approximate="tanh")`` / ``F.silu`` are the library calls (in
+    the kernels line: their device time)."""
     import torch
     import torch.nn.functional as F
 
@@ -735,7 +753,14 @@ def act_mrq_case(kind, shape, dt, bits, gen, timed):
     what = f"{kind} {shape} {str(dt)[6:]} bits={bits}"
     row = {"max_abs_err": check_plain("act_mrq", out, ref, "B13_vs_plain",
                                       what)}
+    n_bits = bit_mismatches(out, ref)
+    log(f"  bits act_mrq {what}: {n_bits} outputs differ from the plain "
+        "version's in their bits (signed zeros included, NaN as NaN)")
+    if n_bits:
+        raise AssertionError(f"act_mrq {what}: {n_bits} outputs differ in "
+                             "their bits")
     if timed:
+        from repro_torch.launch.gemm_times import device_ms
         lib = ((lambda: F.gelu(x, approximate="tanh")) if kind == "gelu"
                else (lambda: F.silu(x)))
         n = x.numel()
@@ -743,6 +768,8 @@ def act_mrq_case(kind, shape, dt, bits, gen, timed):
                              GELU_MRQ_FP32_PER_ELEM * n, "act_mrq", what,
                              f"F.{kind}"))
         device_row(row, run, "act_mrq", what)
+        row["library_ms"] = sum(device_ms(lib, 30).values())
+        log(f"  device time F.{kind} {what}: {row['library_ms']:.4f} ms")
     return row
 
 
@@ -969,8 +996,9 @@ ATTN_TIMED = {"flash_attn_mrq": "B3 bits 8",
 def phase_attn_device(rows):
     """One attention call at the serving shape through
     ``ops.flash_attention`` on the qkv views (``launch/attn_times.py``):
-    device time by the profiler over 30 calls, launches per call, bound
-    and SDPA on the same bf16 q, k, v; the kernels line's ms for B3, B3b
+    device time by the profiler over 30 calls, launches per call (the
+    wrappers' counts and the profiler's kernel events, fatal unless 1 and
+    the flash kernel's), bound and SDPA on the same bf16 q, k, v; the kernels line's ms for B3, B3b
     and B8 is that device time (their wrapper time, CUDA events on the
     public entry point, stays beside it), and the causal-masked call is
     shown beside the unmasked one."""
@@ -980,15 +1008,18 @@ def phase_attn_device(rows):
     table = {r["case"]: r for r in attn_times.time_cases(reps=30, log=log)}
     for name, case in ATTN_TIMED.items():
         r = table[case]
-        if r["launches"] != 1:
-            raise AssertionError(f"{case}: {r['launches']} launches a call")
+        if (r["launches"] != 1 or r["events"] != 1
+                or any("flash_kernel" not in k for k in r["by_kernel"])):
+            raise AssertionError(f"{case}: {r['launches']} launches and "
+                                 f"{r['events']} kernel events a call, "
+                                 f"kernels {sorted(r['by_kernel'])}")
         row = rows[name]
         row["wrapper_ms"], row["ms"] = row["ms"], r["device_ms"]
         row["bound_ms"], row["bound_by"] = r["bound_ms"], r["bound_by"]
         row["library_ms"] = r["sdpa_ms"]
     masked = table["B3 bits 8 causal mask"]
     log(f"masked B3 (causal, bits 8): device {masked['device_ms']:.4f} ms "
-        f"in {masked['launches']:.0f} launches, of which the kernel "
+        f"in {masked['events']:.2f} kernel events, of which the kernel "
         + ", ".join(f"{k} {v:.4f}" for k, v in masked["by_kernel"].items()
                     if "flash_kernel" in k)
         + f"; unmasked {table['B3 bits 8']['device_ms']:.4f} ms")
@@ -1006,8 +1037,9 @@ def phase_composed_device(rows):
     """One composed attention call at the serving shape through
     ``ops.int8_attention`` on the qkv views (``launch/attn_times.py
     --composed``): device time by kernel over 30 calls, launches per call
-    (fatal unless 3: B9a, B10a, B9b or their vec siblings, no code pass
-    and no torch copy), each kernel's bound; the kernels line's ms for
+    (the wrappers' counts and the profiler's kernel events, fatal unless
+    3: B9a, B10a, B9b or their vec siblings, no code pass and no torch
+    copy), each kernel's bound; the kernels line's ms for
     B9a-d and B10a-b is that device time (their wrapper time, CUDA events
     on the public entry point alone, stays beside it as wrapper_ms)."""
     from repro_torch.launch import attn_times
@@ -1016,8 +1048,10 @@ def phase_composed_device(rows):
     table = {r["case"]: r for r in attn_times.time_composed(reps=30, log=log)}
     for case, r in table.items():
         parts = set(r["by_part"])
-        if r["launches"] != 3 or parts != {"qk", "softmax", "pv"}:
-            raise AssertionError(f"{case}: {r['launches']} launches a call, "
+        if (r["launches"] != 3 or r["events"] != 3
+                or parts != {"qk", "softmax", "pv"}):
+            raise AssertionError(f"{case}: {r['launches']} launches and "
+                                 f"{r['events']} kernel events a call, "
                                  f"parts {sorted(parts)}")
     for case, names in COMPOSED_TIMED.items():
         r = table[case]
@@ -1171,32 +1205,25 @@ def forward_vs_plain(bits, cfg, params, ctx):
 
 
 def flash_forward_kernels(bits, cfg, params, ctx):
-    """One full-width flash forward under the profiler: one flash launch
-    per block (the wrappers' counts) and no codes_kernel among the
-    profiler's kernel events (q, k and v are quantized inside the flash
-    kernel, read from the qkv views). The profiler can drop an event, so
-    it is held to at most one flash_kernel per block."""
+    """One full-width flash forward under the profiler
+    (``gemm_times.kernel_events``, which profiles again where the profiler
+    lost events): one flash launch per block (the wrappers' counts) and no
+    codes_kernel among the profiler's kernel events (q, k and v are
+    quantized inside the flash kernel, read from the qkv views)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import kernels
+    from repro_torch.launch.gemm_times import kernel_events
     from repro_torch.models.dit import dit_apply
     x = torch.zeros(8, cfg.img_size, cfg.img_size, cfg.in_ch, device="cuda")
     t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
     y = torch.arange(8, device="cuda") % cfg.n_classes
     ctx = ctx.with_tgroup(5)
     with torch.no_grad():
-        dit_apply(params, cfg, x, t, y, ctx=ctx)
-        torch.cuda.synchronize()
-        before = sum(v for k, v in kernels.LAUNCHES.items()
-                     if k.startswith("flash_attn_mrq"))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            dit_apply(params, cfg, x, t, y, ctx=ctx)
-            torch.cuda.synchronize()
-    launched = sum(v for k, v in kernels.LAUNCHES.items()
-                   if k.startswith("flash_attn_mrq")) - before
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        events, counts = kernel_events(
+            lambda: dit_apply(params, cfg, x, t, y, ctx=ctx), 1)
+    launched = sum(v for k, v in counts.items()
+                   if k.startswith("flash_attn_mrq"))
+    names = [n for n, _ in events]
     flash = sum("flash_kernel" in n for n in names)
     codes = sum("codes_kernel" in n for n in names)
     stats = sum("MeanOps" in n or "pow_" in n for n in names)
@@ -1205,7 +1232,7 @@ def flash_forward_kernels(bits, cfg, params, ctx):
         f"profiler: {len(names)} kernel events (launches per forward), "
         f"{flash} flash_kernel, {codes} codes_kernel, {passes} prologue "
         f"passes, {stats} torch MeanOps / pow kernels")
-    if launched != cfg.n_layers or codes or not 0 < flash <= cfg.n_layers:
+    if launched != cfg.n_layers or codes or flash != cfg.n_layers:
         raise AssertionError(f"{bits} flash forward: {launched} launches and "
                              f"{flash} flash_kernel events for "
                              f"{cfg.n_layers} blocks, {codes} codes_kernel")
@@ -1532,7 +1559,8 @@ def phase_entry_points():
     with kernels.plain_on_cuda():
         refs = [fn() for _, fn in calls]
     for (name, _), out, ref in zip(calls, outs, refs):
-        n_diff = int((out != ref).sum())
+        n_diff = (bit_mismatches(out, ref) if name == "act_mrq"
+                  else int((out != ref).sum()))
         log(f"  entry point -> {name}: out {tuple(out.shape)} "
             f"{str(out.dtype)[6:]}, {n_diff} outputs differ from the plain "
             "versions'")
@@ -1665,6 +1693,52 @@ def softmax_ptxas():
         raise AssertionError(f"the softmax-codes pass spills: {spilled}")
 
 
+ACT_SERVING = {  # B13's serving instantiations: <bf16, bf16, GELU>, <f32, f32, GELU>
+    "bf16": r"act_mrq_kernelI13__nv_bfloat16S\d*_Li0E",
+    "f32": r"act_mrq_kernelIffLi0E"}
+
+
+def act_mrq_ptxas():
+    """Phase 1 for B13 (``csrc/act_mrq.cu``): ptxas's registers and spills
+    per instantiation ``act_mrq_kernel<x, out, kind>``, and the SASS of the
+    serving ones: instructions in all, and those of the fast block from its
+    first 16-byte load to its last 16-byte store over the elements a thread
+    takes there (the instructions an element on the serving path). Fatal on
+    a spill in a serving instantiation. Returns {serving: instructions an
+    element}."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+    spilled = []
+    for fn, line in ptxas_lines("act_mrq", "act_mrq_kernel"):
+        log(f"  ptxas {fn}: {line}")
+        if spill_bytes(line) and any(re.match(p, fn)
+                                     for p in ACT_SERVING.values()):
+            spilled.append(fn)
+    vec = int(re.search(r"constexpr int VEC = (\d+);", (
+        kbuild.CSRC / "act_mrq.cu").read_text()).group(1))
+    per = {}
+    for fn, ops in kbuild.sass_opcodes("act_mrq", "act_mrq_kernel").items():
+        name = entry_name(fn)
+        dt = next((d for d, p in ACT_SERVING.items() if re.match(p, name)),
+                  None)
+        if dt is None:
+            continue
+        first = next(i for i, o in enumerate(ops) if o.startswith("LDG.E.128"))
+        last = max(i for i, o in enumerate(ops) if o.startswith("STG.E.128"))
+        span = ops[first:last + 1]
+        per[dt] = len(span) / vec
+        log(f"act_mrq <{dt}, {dt}, gelu> SASS: {len(ops)} instructions; "
+            f"fast block {len(span)} over {vec} elements = {per[dt]:.2f} an "
+            f"element ({sum(o.startswith('MUFU') for o in span)} MUFU, "
+            f"{sum(o.startswith('BRA') for o in span)} BRA in it)")
+    if spilled:
+        raise AssertionError(f"B13's serving instantiations spill: {spilled}")
+    if set(per) != set(ACT_SERVING):
+        raise AssertionError(f"B13's serving instantiations not found: {per}")
+    return per
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1680,7 +1754,7 @@ def main() -> int:
     secs = kbuild.build_all()
     log(f"build: {secs:.1f} s for {list(kbuild.SOURCES)} (nvcc, sm_90a)")
     for name in kbuild.BUILD_LOG:        # the rest below, with their gates
-        if name in ("flash_attn_mrq", "int8_bmm", "softmax_mrq"):
+        if name in ("flash_attn_mrq", "int8_bmm", "softmax_mrq", "act_mrq"):
             continue
         for fn, line in ptxas_lines(name):
             if not fn.startswith("prologue_"):
@@ -1694,6 +1768,7 @@ def main() -> int:
     composed_ptxas()
     softmax_ptxas()
     prologue_ptxas()
+    act_mrq_ptxas()
     for lib, kern in (("int8_fused", "gemm_kernel"),
                       ("int4_packed", "gemm4_kernel")):
         sass = kbuild.sass_counts(lib, kern, ops=(

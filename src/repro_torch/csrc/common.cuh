@@ -4,7 +4,8 @@
 // (csrc/prologue.cuh) and of the attention kernels (csrc/attn.cuh:
 // flash attention and the composed chain's matmuls, which code their
 // operands in shared memory); the MRQ probability codes of flash and the
-// softmax-codes pass (mrq_code); and the cp.async helpers.
+// softmax-codes pass (mrq_code); B13's quotient and NaN-keeping clips
+// (csrc/act_mrq.cu); and the cp.async helpers.
 //
 // Groups: g points at device int32 group indices read with a row stride
 // gs: gs = 0 reads g[0] for every row (one TGQ group per call), gs = 1
@@ -36,8 +37,9 @@ __device__ __forceinline__ float ldx(const __nv_bfloat16* p, long i) {
 // a / b rounded to nearest even (= __fdiv_rn(a, b)) from y = __frcp_rn(b)
 // and q0 = a * y: a Newton step makes the quotient faithful, Markstein's
 // step rounds it. Holds for finite normal b where no step over- or
-// underflows; the callers use it for quotients below 2^17 and read codes
-// that round a smaller quotient than 2^-100 to 0 either way.
+// underflows; the callers use it for quotients below 2^17 (B13 also
+// above, where it clips the code) and read codes that round a smaller
+// quotient than 2^-100 to 0 either way.
 __device__ __forceinline__ float div_rn(float a, float b, float y, float q0) {
   const float q1 = __fmaf_rn(__fmaf_rn(-b, q0, a), y, q0);
   return __fmaf_rn(__fmaf_rn(-b, q1, a), y, q1);

@@ -157,23 +157,35 @@ def lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def sass_counts(name: str, kernel: str,
-                ops=("IGMMA", "UTMALDG", "IMMA", "HMMA")) -> Dict[str, int]:
-    """How often each SASS instruction of ``ops`` appears in the functions
-    of the built ``csrc/<name>.cu`` whose names contain ``kernel``
-    (``cuobjdump -sass``; builds the library first). An empty dict if no
-    function matches."""
+def sass_opcodes(name: str, kernel: str) -> Dict[str, List[str]]:
+    """{mangled function name: its SASS instructions' opcodes in address
+    order, predicates dropped (``LDG.E.128.CONSTANT``, ``FFMA``, ...)} for
+    the functions of the built ``csrc/<name>.cu`` whose names contain
+    ``kernel`` (``cuobjdump -sass``; builds the library first)."""
+    import re
     build_all((name,))
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(_lib_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    counts: Dict[str, int] = {}
+    out: Dict[str, List[str]] = {}
     for fn in text.split("Function : ")[1:]:
-        if kernel in fn.split("\n", 1)[0]:
-            words = fn.replace(".", " ").replace(";", " ").split()
-            for op in ops:
-                counts[op] = counts.get(op, 0) + words.count(op)
-    return counts
+        head, body = fn.split("\n", 1)
+        if kernel in head:
+            out[head.strip()] = re.findall(
+                r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                body, re.M)
+    return out
+
+
+def sass_counts(name: str, kernel: str,
+                ops=("IGMMA", "UTMALDG", "IMMA", "HMMA")) -> Dict[str, int]:
+    """How many SASS instructions of each opcode in ``ops`` (its first
+    dotted part: ``IGMMA`` counts ``IGMMA.64x128x32.S8.S8``) the functions
+    of ``sass_opcodes(name, kernel)`` hold; an empty dict if no function
+    matches."""
+    fns = sass_opcodes(name, kernel)
+    heads = [o.split(".", 1)[0] for ops_ in fns.values() for o in ops_]
+    return {op: heads.count(op) for op in ops} if fns else {}
 
 
 def check(err: int, name: str, what: str) -> None:

@@ -643,15 +643,23 @@ def act_mrq_ref(x, s_neg, s_pos, bits: int, kind: str = "gelu",
                 out_dtype=torch.float32):
     """GELU (tanh) or SiLU in f32, then the MRQ signed two-region
     quant-dequant (B13): ``clip(rint(h / s_neg), -half, 0) * s_neg`` where
-    ``h < 0``, else ``clip(rint(h / s_pos), 0, half-1) * s_pos``."""
+    ``h < 0``, else ``clip(rint(h / s_pos), 0, half-1) * s_pos``.
+
+    Zeros take ``jnp.clip``'s signs, whose max and min order -0 below +0
+    (``torch.clamp`` keeps the first operand of a tie, and on the card
+    its min of -0 and +0 is the hardware's): the negative branch keeps a
+    zero rint's sign and makes a positive rint +0, the positive branch
+    makes every zero +0. With positive steps the output's sign bit is set
+    exactly where ``h < 0``."""
     if kind not in ("gelu", "silu"):
         raise ValueError(kind)
     half = 2 ** (bits - 1)
     xf = x.float()
     h = gelu_tanh_ref(xf) if kind == "gelu" else silu_ref(xf)
     sn, sp = _scalar(s_neg, xf), _scalar(s_pos, xf)
-    qn = torch.clamp(torch.round(h / sn), -half, 0) * sn
-    qp = torch.clamp(torch.round(h / sp), 0, half - 1) * sp
+    vn = torch.round(h / sn)
+    qn = torch.where(vn > 0, 0.0, torch.clamp(vn, min=-half)) * sn
+    qp = (torch.clamp(torch.round(h / sp), 0, half - 1) + 0.0) * sp
     return torch.where(h < 0, qn, qp).to(out_dtype)
 
 

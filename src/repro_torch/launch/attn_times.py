@@ -12,7 +12,8 @@ CFG row) at bits 8 and 4, and B3 with a causal mask. For each it prints:
 - device ms per call: the CUDA kernels' durations summed by
   ``torch.profiler`` over ``--reps`` calls, by kernel (the flash kernel,
   any codes pre-pass and the torch glue around them);
-- launches per call: the kernel events over ``--reps``;
+- launches per call: the wrappers' counts over ``--reps`` (and the
+  profiler's kernel events, torch glue included);
 - wrapper ms per call: CUDA events around ``--reps`` back-to-back calls
   (the host's enqueue included);
 - bound ms: the least time the card could take, the larger of the bytes
@@ -333,22 +334,18 @@ def kernel_name(name: str) -> str:
 
 
 def device_ms(run, reps: int):
-    """({kernel: device ms per call}, kernel launches per call) of ``reps``
-    calls of ``run``, from the profiler's CUDA kernel events."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    per, n = collections.Counter(), 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[kernel_name(e.name)] += e.time_range.elapsed_us()
-            n += 1
-    return {k: v / reps / 1e3 for k, v in per.items()}, n / reps
+    """({kernel: device ms per call}, kernel events per call, launches per
+    call) of ``reps`` calls of ``run``: the times and events from the
+    profiler's CUDA kernel events, the launches from the wrappers' counts
+    (``gemm_times.kernel_events``, which profiles again where the profiler
+    lost events; ``--src`` hence needs a tree that has it)."""
+    from repro_torch.launch.gemm_times import kernel_events
+    events, launched = kernel_events(run, reps)
+    per = collections.Counter()
+    for name, us in events:
+        per[kernel_name(name)] += us
+    return ({k: v / reps / 1e3 for k, v in per.items()}, len(events) / reps,
+            sum(launched.values()) / reps)
 
 
 def wrapper_ms(run, reps: int) -> float:
@@ -411,21 +408,21 @@ def time_cases(reps: int = 30, cases=CASES, log=print):
     rows = []
     for name, bits, vec, masked in cases:
         run, q, k, v = make_case(bits, vec, masked, gen)
-        dev, launches = device_ms(run, reps)
+        dev, events, launches = device_ms(run, reps)
         qb, kb, vb = (t.permute(0, 2, 1, 3) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         nbytes = 4 * B * H * N * HD * 2 + 7 * 4 * (G if vec else 1)
         bms, by = bound(nbytes, 3 * 2 * B * H * N * N * HD,
                         SOFTMAX_FP32_PER_SCORE * B * H * N * N)
         row = {"case": name, "device_ms": sum(dev.values()),
-               "by_kernel": dev, "launches": launches,
+               "by_kernel": dev, "launches": launches, "events": events,
                "wrapper_ms": wrapper_ms(run, reps), "bound_ms": bms,
                "bound_by": by, "sdpa_ms": device_ms(
                    lambda: sdpa(qb, kb, vb), reps)[0]}
         row["sdpa_ms"] = sum(row["sdpa_ms"].values())
         rows.append(row)
         log(f"  {name:<24} device {row['device_ms']:.4f} ms in "
-            f"{launches:.1f} launches ("
+            f"{launches:.1f} launches, {events:.2f} kernel events ("
             + ", ".join(f"{k} {t:.4f}" for k, t in sorted(
                 dev.items(), key=lambda kv: -kv[1]))
             + f"); wrapper {row['wrapper_ms']:.4f} ms; bound "
@@ -563,18 +560,19 @@ def time_composed(reps: int = 30, cases=COMPOSED_CASES, log=print):
         digest = hashlib.sha256(
             out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
         ).hexdigest()
-        dev, launches = device_ms(run, reps)
+        dev, events, launches = device_ms(run, reps)
         parts = collections.Counter()
         for k, t in dev.items():
             parts[PARTS.get(k.split("<")[0], "torch glue")] += t
         row = {"case": name, "device_ms": sum(dev.values()),
                "by_kernel": dev, "by_part": dict(parts),
-               "launches": launches, "wrapper_ms": wrapper_ms(run, reps),
+               "launches": launches, "events": events,
+               "wrapper_ms": wrapper_ms(run, reps),
                "bounds": bounds, "bound_ms": bounds["chain"][0],
                "sha256": digest}
         rows.append(row)
         log(f"  {name:<22} device {row['device_ms']:.4f} ms in "
-            f"{launches:.1f} launches ("
+            f"{launches:.1f} launches, {events:.2f} kernel events ("
             + ", ".join(f"{p} {t:.4f}" + (
                 f" [bound {bounds[p][0]:.4f}]" if p in bounds else "")
                 for p, t in sorted(parts.items(), key=lambda kv: -kv[1]))
@@ -683,17 +681,18 @@ def time_b12(reps: int = 30, log=print):
         run = lambda: kernels.softmax_mrq(x, s1, bits=8, out_dtype=dt)
         out = run()
         torch.cuda.synchronize()
-        dev, launches = device_ms(run, reps)
+        dev, events, launches = device_ms(run, reps)
         nbytes = 2 * R * N * x.element_size() + 4
         row = {"case": f"B12 {str(dt)[6:]}", "device_ms": sum(dev.values()),
-               "by_kernel": dev, "launches": launches,
+               "by_kernel": dev, "launches": launches, "events": events,
                "wrapper_ms": wrapper_ms(run, reps),
                "bound_ms": bound(nbytes, 0, 0)[0],
                "sha256": hashlib.sha256(out.contiguous().view(torch.uint8)
                                         .cpu().numpy().tobytes()).hexdigest()}
         rows.append(row)
         log(f"  {row['case']:<12} device {row['device_ms']:.4f} ms in "
-            f"{launches:.1f} launches; wrapper {row['wrapper_ms']:.4f} ms; "
+            f"{launches:.1f} launches, {events:.2f} kernel events; wrapper "
+            f"{row['wrapper_ms']:.4f} ms; "
             f"bound {row['bound_ms']:.4f} ms (bytes); out sha256 "
             f"{row['sha256'][:16]}")
     return rows

@@ -145,21 +145,59 @@ def kernel_name(name: str) -> str:
     return m.group(1) + (m.group(2) or "") if m else name[:60]
 
 
-def device_ms(run, reps: int):
-    """{kernel: device ms per call} of ``reps`` calls of ``run``, from the
-    profiler's CUDA kernel events (after one warm-up call)."""
+PROFILE_TRIES = 5
+
+
+def kernel_events(run, reps: int):
+    """([(name, device µs)] of the profiler's CUDA kernel events,
+    {wrapper: launches}) of ``reps`` calls of ``run`` after one warm-up
+    call; the launches are the wrappers' counts (``kernels.LAUNCHES``)
+    over those calls.
+
+    The profiler can drop events: on the H100 one in 90, or every event of
+    a session. Every call runs the same kernels and makes at least one
+    event, and every counted launch one, so a session whose events are
+    fewer than the calls or the launches, or whose count for some kernel
+    is not a multiple of ``reps``, lost some: the calls are profiled again,
+    up to ``PROFILE_TRIES`` sessions, and then this raises."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        before = dict(kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0)
+                    for k, v in kernels.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        events = [(e.name, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = collections.Counter(k for k, _ in events)
+        if (len(events) >= max(reps, sum(launched.values()))
+                and all(n % reps == 0 for n in counts.values())):
+            return events, launched
+        print(f"the profiler recorded {len(events)} kernel events for "
+              f"{reps} calls and {sum(launched.values())} launches; "
+              "profiling again", file=sys.stderr, flush=True)
+        time.sleep(1.0)
+    raise RuntimeError(f"the profiler lost kernel events in "
+                       f"{PROFILE_TRIES} sessions of {reps} calls")
+
+
+def device_ms(run, reps: int):
+    """{kernel: device ms per call} of ``reps`` calls of ``run``, from the
+    profiler's CUDA kernel events (``kernel_events``)."""
     per = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per[kernel_name(e.name)] += e.time_range.elapsed_us()
+    for name, us in kernel_events(run, reps)[0]:
+        per[kernel_name(name)] += us
     return {k: v / reps / 1e3 for k, v in per.items()}
 
 

@@ -78,7 +78,7 @@ from repro_torch.kernels import int8_bmm as IB
 from repro_torch.kernels import int8_fused as F8
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
-    TOLERANCES, flash_vs_composed_atol, pack_int4,
+    TOLERANCES, flash_vs_composed_atol, gelu_tanh_ref, pack_int4, silu_ref,
 )
 
 FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
@@ -886,16 +886,27 @@ def test_softmax_codes_kernel_sweep_matches_plain(dev, C, bits):
     assert TOLERANCES["B10_vs_plain"][0] == 0.0
 
 
+def _same_bits(a, b):
+    """Equal dtype, shape and bits, signed zeros included, a NaN equal to a
+    NaN (not by payload)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = torch.isnan(a)
+    iv = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(iv)[~nan], b.view(iv)[~nan]))
+
+
 @pytest.mark.parametrize("kind", ["gelu", "silu"])
 @pytest.mark.parametrize("bits", [8, 6])
 @pytest.mark.parametrize("shape", [(16, 100), (3, 5, 130), (64, 512),
                                    (2048, 1024), (7,)])
 def test_act_mrq_kernel_matches_plain(dev, kind, bits, shape):
-    """B13 bit for bit against its plain version over the reference's
-    shape sweep (and a 7-element tail), f32 and bf16 in and out, and on a
-    view that starts off the 16-byte boundary (the unvectorised path);
-    NaN, +inf and -inf among the inputs (NaN, +(h-1) s_pos and NaN out:
-    the activation makes -inf * 0)."""
+    """B13 bit for bit (signed zeros included) against its plain version
+    over the reference's shape sweep (and a 7-element tail), f32 and bf16
+    in and out, and on a view that starts off the 16-byte boundary (the
+    unvectorised path); NaN, +inf and -inf among the inputs (NaN, +(h-1)
+    s_pos and NaN out: the activation makes -inf * 0)."""
     g = torch.Generator(device=dev).manual_seed(bits + shape[-1])
     half = 2 ** (bits - 1)
     x = torch.randn(shape, device=dev, generator=g) * 3
@@ -910,14 +921,66 @@ def test_act_mrq_kernel_matches_plain(dev, kind, bits, shape):
             out = run()
             assert kernels.LAUNCHES["act_mrq"] == before + 1
             assert out.dtype == out_dt and out.shape == x.shape
-            assert _same(out, _plain(run)), (dt, out_dt)
+            assert _same_bits(out, _plain(run)), (dt, out_dt)
             assert bool(torch.isnan(out.reshape(-1)[1]))
     flat = x.reshape(-1)
     if flat.numel() > 8:
         off = flat[1:]                     # 4 bytes past the allocation
         run = lambda: kernels.act_mrq(off, 0.005, 0.03, bits=bits, kind=kind)
-        assert _same(run(), _plain(run))
+        assert _same_bits(run(), _plain(run))
     assert TOLERANCES["B13_vs_plain"][0] == 0.0
+
+
+# steps outside the fast quotient's range [2^-100, 2^100]: the general path
+ODD_STEPS = (0.0, -0.01, 3 * 2.0 ** -129, 2.0 ** -110, 2.0 ** 110,
+             float("inf"), float("nan"))
+
+
+@pytest.mark.parametrize("bits", [8, 6, 4])
+@pytest.mark.parametrize("kind", ["gelu", "silu"])
+def test_act_mrq_kernel_every_bf16_pattern(dev, kind, bits):
+    """B13 bit for bit (signed zeros included, NaN as NaN) against its
+    plain version on all 65,536 bf16 patterns, f32 and bf16 out: at the
+    steps (0.17 / half, 6 / half) and (0.005, 0.03), which take the fast
+    quotient, and with each step of ``ODD_STEPS`` as s_neg and as s_pos,
+    which take the IEEE divide; with positive steps -0 exactly where
+    h < 0."""
+    half = 2 ** (bits - 1)
+    x = (torch.arange(1 << 16, dtype=torch.int32, device=dev) << 16).view(
+        torch.float32).to(torch.bfloat16)
+    pairs = [(0.17 / half, 6.0 / half), (0.005, 0.03)]
+    pairs += [p for s in ODD_STEPS for p in ((s, 0.03), (0.005, s))]
+    h = (gelu_tanh_ref if kind == "gelu" else silu_ref)(x.float())
+    for sn, sp in pairs:
+        steps = (torch.tensor(sn, device=dev), torch.tensor(sp, device=dev))
+        for out_dt in (torch.float32, torch.bfloat16):
+            run = lambda: kernels.act_mrq(x, *steps, bits=bits, kind=kind,
+                                          out_dtype=out_dt)
+            out = run()
+            assert _same_bits(out, _plain(run)), (sn, sp, out_dt)
+            if sn > 0 and sp > 0:
+                zero = out == 0
+                assert torch.equal(torch.signbit(out.float())[zero],
+                                   (h < 0)[zero]), (sn, sp, out_dt)
+
+
+def test_act_mrq_kernel_rounds_every_tie(dev):
+    """f32 ties of the fast quotient through GELU's identity range: for
+    x >= 8, h = x exactly (checked on the plain version), so at s_pos =
+    1/8 and bits 8 the inputs (k + 0.5) / 8, k = 64..127, put h / s_pos
+    on every half-integer from 64.5 to 127.5 (clipped at 127), beside
+    them +-1 and +-2 ulps: each output bit for bit the plain version's,
+    the ties rounded to even."""
+    k = torch.arange(64, 128, device=dev, dtype=torch.float32)
+    t = ((k + 0.5) / 8).view(torch.int32)
+    x = torch.stack([(t + d).view(torch.float32) for d in (-2, -1, 0, 1, 2)])
+    assert torch.equal(gelu_tanh_ref(x), x)
+    run = lambda: kernels.act_mrq(x, 0.17 / 128, 0.125, bits=8)
+    out = run()
+    assert _same_bits(out, _plain(run))
+    codes = out[2] * 8
+    assert torch.equal(codes, torch.clamp(torch.round(k + 0.5), max=127))
+    assert bool((codes[:-1] % 2 == 0).all())
 
 
 def _mask_case(dev, kind, B, M, N, gen):
