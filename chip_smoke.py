@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
-and continuous-batching, flash and composed attention, and its public
+and continuous-batching, flash and composed attention, its HO calibration
+with a saved artifact cold-started in a fresh process, and its public
 kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
@@ -90,6 +91,12 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              range-calibrated (w8a8, w6a6, w4a4; G=10) on the card; the
              same requests served fp and quantized through the kernels;
              prints each drift (w8a8 must read 0.010440).
+3b. HO      — the same checkpoint HO-calibrated (the paper's Algorithm 1:
+             Fisher taps, alternating candidate search, MRQ + TGQ) at each
+             width with the launcher's ``--calib ho`` knobs (n_alpha 8,
+             rounds 2; 10 batches of 4); no fallback op, finite samples;
+             prints each drift beside range's and the calibration seconds.
+             A second W8A8 HO calibration must give the same content hash.
 4. serve   — DiT-XL/2 at full width (bf16, perturbed initialised weights)
              through ``repro_torch.launch.serve``'s path at w8a8, w6a6 and
              w4a4: range calibration, then 8 requests, microbatch 4, 20
@@ -121,6 +128,14 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              dispatch fault steps the flash async engine to the composed
              rung, which serves every request. Prints flash and composed
              ms/step and req/s side by side.
+4b. cold start — DiT-XL/2 at full width HO-calibrated at W8A8 through
+             ``launch.serve.build`` and saved (``QuantArtifact.save``); 8
+             requests x 20 steps served in process (launch counts set to 0
+             before, read after: packed x forwards); then ``python -m
+             repro_torch.launch.serve --load-artifact`` in a fresh process
+             must report no calibration and dump samples equal to the
+             in-memory artifact's bit for bit. Prints the calibration,
+             save and load seconds beside range's calibration seconds.
 5. entry points — the public kernel API at the DiT-XL/2 shapes:
              ``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
              ``ops.act_mrq_op`` (GELU and SiLU) and
@@ -1073,17 +1088,13 @@ WIDTHS = ("w8a8", "w6a6", "w4a4")
 W8A8_DRIFT = 0.010440
 
 
-def phase_trained():
-    import numpy as np
-    import torch
-
-    from repro_torch import kernels
+def trained_setup():
+    """The trained 6-layer checkpoint on the card, its DiT and diffusion
+    configs, schedule, and the 8 requests (50 steps) phases 3 and 3b
+    serve."""
     from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
     from repro_torch.models.dit import DiTCfg, params_from_numpy
-    from repro_torch.quant.api import quantize
-    from repro_torch.quant.recipe import QuantRecipe
     from repro_torch.serving.batching import GenRequest
-    from repro_torch.serving.engine import ServeEngine
 
     cfg = DiTCfg(img_size=16, in_ch=4, patch=2, d_model=160, n_layers=6,
                  n_heads=4, n_classes=8)
@@ -1091,37 +1102,107 @@ def phase_trained():
     with open(os.path.join(ROOT, "experiments", "dit_bench_450.pkl"),
               "rb") as f:
         params = params_from_numpy(pickle.load(f), device="cuda")
-    sched = make_schedule(dif)
     reqs = [GenRequest(request_id=i, label=i % 8, steps=50, seed=100 + i)
             for i in range(8)]
-    ctxs = [("fp", None)]
+    return cfg, dif, params, make_schedule(dif), reqs
+
+
+def serve_trained(setup, name, ctx):
+    """The 8 requests served under ``ctx`` (None: fp); finite samples."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg, dif, params, sched, reqs = setup
+    eng = ServeEngine(params, cfg, dif, sched, ctx=ctx, microbatch=4,
+                      step_buckets=(50,), device="cuda")
+    before = dict(kernels.LAUNCHES)
+    res = eng.serve(reqs)
+    out = np.stack([res[i].sample for i in range(8)])
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    log(f"trained {name}: launches {launched}")
+    if not np.isfinite(out).all():
+        raise AssertionError(f"non-finite trained-checkpoint {name} samples")
+    return out
+
+
+def drift(fp, q) -> float:
+    import numpy as np
+    return float(np.abs(fp - q).mean() / np.abs(fp).mean())
+
+
+def phase_trained():
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+
+    setup = trained_setup()
+    cfg, dif, params, sched, _ = setup
+    fp = serve_trained(setup, "fp", None)
+    drifts = {}
     for bits in WIDTHS:
         art = quantize(params, cfg, dif, QuantRecipe(bits=bits), sched=sched)
         if art.fallback_ops():
             raise AssertionError(f"{bits} fallback ops: {art.fallback_ops()}")
-        ctxs.append((bits, art.context()))
-    out = {}
-    for name, ctx in ctxs:
-        eng = ServeEngine(params, cfg, dif, sched, ctx=ctx, microbatch=4,
-                          step_buckets=(50,), device="cuda")
-        before = dict(kernels.LAUNCHES)
-        res = eng.serve(reqs)
-        out[name] = np.stack([res[i].sample for i in range(8)])
-        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        log(f"trained {name}: launches {launched}")
-        if not np.isfinite(out[name]).all():
-            raise AssertionError(f"non-finite trained-checkpoint {name} "
-                                 "samples")
-    fp = out["fp"]
-    drifts = {bits: float(np.abs(fp - out[bits]).mean() / np.abs(fp).mean())
-              for bits in WIDTHS}
+        drifts[bits] = drift(fp, serve_trained(setup, bits, art.context()))
     for bits, d in drifts.items():
         log(f"trained checkpoint (d=160, 6 layers, 50 steps, 8 requests): "
             f"{bits.upper()} vs FP drift = {d:.6f} (mean|fp-q| / mean|fp|)")
     if round(drifts["w8a8"], 6) != W8A8_DRIFT:
         raise AssertionError(f"W8A8 drift {drifts['w8a8']} moved from "
                              f"{W8A8_DRIFT}")
-    return drifts
+    return drifts, setup, fp
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the paper's HO calibration on the trained checkpoint
+# ---------------------------------------------------------------------------
+HO_KNOBS = {"method": "ho", "n_alpha": 8, "rounds": 2}   # --calib ho's
+
+
+def phase_trained_ho(setup, fp, range_drifts):
+    """HO-calibrate the trained checkpoint at each width with the
+    launcher's knobs (no fake-quant fallback, finite samples), print each
+    drift beside range's and the calibration seconds; a second W8A8 HO
+    calibration must give the same content hash (the search is
+    deterministic on the card)."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.quant.api import quantize
+    from repro_torch.quant.recipe import QuantRecipe
+
+    cfg, dif, params, sched, _ = setup
+    out, hashes = {}, []
+    for bits in WIDTHS + ("w8a8",):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = quantize(params, cfg, dif, QuantRecipe(bits=bits, **HO_KNOBS),
+                       sched=sched)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if art.fallback_ops():
+            raise AssertionError(f"HO {bits} fallback ops: "
+                                 f"{art.fallback_ops()}")
+        if bits == "w8a8":
+            hashes.append(ckpt.content_hash(art.qparams)["digest"])
+            if len(hashes) == 2:
+                log(f"trained checkpoint HO W8A8 again: calibration "
+                    f"{secs:.2f} s, content hash {hashes[1]} (first "
+                    f"{hashes[0]})")
+                if hashes[0] != hashes[1]:
+                    raise AssertionError("a second W8A8 HO calibration "
+                                         "gave another content hash")
+                break
+        d = drift(fp, serve_trained(setup, f"HO {bits}", art.context()))
+        if d != d:
+            raise AssertionError(f"HO {bits} drift is not finite")
+        out[bits] = (d, secs)
+        log(f"trained checkpoint HO {bits.upper()} (n_alpha 8, rounds 2, "
+            f"10 batches of 4): calibration {secs:.2f} s, vs FP drift = "
+            f"{d:.6f} (range {range_drifts[bits]:.6f}); "
+            f"{art.meta['calib']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1141,6 +1222,7 @@ def serve_width(bits):
         device="cuda")
     log(f"full width {bits}: range calibration {info['calib_s']:.2f} s; "
         f"{art.summary()}")
+    RANGE_CALIB_S[bits] = info["calib_s"]
     if art.fallback_ops():
         raise AssertionError(f"{bits} fallback ops: {art.fallback_ops()}")
     reqs = list(sq.pending)
@@ -1242,6 +1324,7 @@ def flash_forward_kernels(bits, cfg, params, ctx):
 
 
 TIMES = {}     # (width, attn_impl, serve) -> (ms/step, req/s), this run
+RANGE_CALIB_S = {}     # width -> full-width range calibration s, this run
 
 
 def serve_composed(bits, cfg, params, art, reqs, flash_samples):
@@ -1481,6 +1564,84 @@ def phase_serve():
             log(f"  {bits} {serve}: flash {f[0]!r} ms/step {f[1]!r} req/s; "
                 f"composed {c[0]!r} ms/step {c[1]!r} req/s")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: HO at full width, saved once, cold-started in a fresh process
+# ---------------------------------------------------------------------------
+def phase_cold_start():
+    """DiT-XL/2 HO-calibrated at W8A8 through ``launch.serve.build``, 8
+    requests x 20 steps served (launch counts = packed x forwards) and the
+    artifact saved; then ``python -m repro_torch.launch.serve
+    --load-artifact`` in a fresh process must run no calibration and dump
+    samples equal to the in-memory artifact's bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import build
+
+    requests, microbatch, steps = 8, 4, 20
+    with tempfile.TemporaryDirectory(prefix="_ho_artifact_",
+                                     dir=ROOT) as tmp:
+        path = os.path.join(tmp, "dit_xl_2_w8a8_ho")
+        cfg, params, art, engine, sq, info = build(
+            "dit-xl-2", False, "w8a8", 0, requests, microbatch, steps, 1.5,
+            device="cuda", calib="ho", save_artifact=path)
+        log(f"full width w8a8 HO: calibration {info['calib_s']:.2f} s "
+            f"(range {RANGE_CALIB_S['w8a8']:.2f} s in this run), save "
+            f"{info['save_s']:.2f} s "
+            f"({sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 2 ** 20:.1f} MiB); "
+            f"{art.summary()}; {art.meta['calib']}")
+        if art.fallback_ops() or art.recipe.method != "ho":
+            raise AssertionError(f"HO fallback ops: {art.fallback_ops()}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()           # the main path's run starts here
+        results = sq.run(engine)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)  # ... and ends here
+        samples = np.stack([results[r].sample for r in sorted(results)])
+        forwards = engine.stats["microbatches"] * steps
+        want = {k: 0 for k in launches}
+        want.update({k: n * forwards for k, n in art.packed_counts().items()})
+        if launches != want:
+            raise AssertionError(f"HO w8a8 launch counts {launches} != "
+                                 f"packed x forwards {want}")
+        if samples.shape != (requests, cfg.img_size, cfg.img_size,
+                             cfg.in_ch) or not np.isfinite(samples).all():
+            raise AssertionError(f"bad HO w8a8 samples {samples.shape}")
+        del params, art, engine
+        torch.cuda.empty_cache()
+        dump = os.path.join(tmp, "cold.npy")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "dit-xl-2", "--quantize", "w8a8", "--load-artifact", path,
+             "--requests", str(requests), "--microbatch", str(microbatch),
+             "--steps", str(steps), "--cfg-scale", "1.5",
+             "--dump-samples", dump],
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in r.stdout.splitlines():
+            log(f"  cold start: {line}")
+        if r.returncode != 0:
+            raise AssertionError(f"cold start exited {r.returncode}: "
+                                 f"{r.stderr[-3000:]}")
+        if ("calibrations run: 0" not in r.stdout
+                or "calibrated" in r.stdout):
+            raise AssertionError("the cold start ran a calibration")
+        cold = np.load(dump)
+        same = cold.shape == samples.shape and np.array_equal(cold, samples)
+        log(f"full width w8a8 HO cold start: fresh process {wall:.2f} s "
+            f"in all; samples equal to the in-memory artifact's bit for "
+            f"bit: {same}")
+        if not same:
+            raise AssertionError("cold-start samples differ from the "
+                                 "in-memory artifact's")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1786,8 +1947,12 @@ def main() -> int:
     phase_gemm_device(rows)
     phase_attn_device(rows)
     phase_composed_device(rows)
-    drifts = phase_trained()
+    drifts, setup, fp = phase_trained()
+    ho = phase_trained_ho(setup, fp, drifts)
+    del setup, fp
     launches = phase_serve()
+    for name, n in phase_cold_start().items():
+        launches[name] = launches.get(name, 0) + n
     for name, n in phase_entry_points().items():
         launches[name] = launches.get(name, 0) + n
 
@@ -1852,7 +2017,9 @@ def main() -> int:
             f"{k} {MASKED_MS[k]:.4f} ms / {rows[k]['wrapper_ms']:.4f} ms"
             for k in MASKED_MS))
     log(f"total {time.perf_counter() - t0:.1f} s; trained drifts "
-        + ", ".join(f"{b} {d:.6f}" for b, d in drifts.items()))
+        + ", ".join(f"{b} {d:.6f}" for b, d in drifts.items())
+        + "; HO " + ", ".join(f"{b} {d:.6f} ({s:.2f} s)"
+                              for b, (d, s) in ho.items()))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

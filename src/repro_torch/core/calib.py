@@ -1,10 +1,13 @@
-"""Calibration-set construction (forward-diffusion protocol) and the loss
-closure that drives calibration capture — port of the serving-path part
-of ``repro/core/calib.py``.
+"""Phase 1 of Algorithm 1 — calibration-set construction with time
+grouping (§III-A) — and the loss closure that drives calibration capture
+and the Fisher backward; port of the DiT part of ``repro/core/calib.py``.
 
-Tuples (x_t, t, y) come from forward diffusion of source latents with a
-known noise target; timesteps are drawn uniformly within each TGQ group
-G_i = [i*T/G, (i+1)*T/G). Draws come from a seeded ``torch.Generator``
+Default protocol: tuples (x_t, t, y) come from forward diffusion of
+source latents with a known noise target, timesteps drawn uniformly
+within each TGQ group G_i = [i*T/G, (i+1)*T/G). ``harvest_trajectory=True``
+takes x_t from the model's own sampling trajectory instead (the
+Q-Diffusion protocol, ``diffusion.ddpm.collect_xt_dataset``) and pairs it
+with a fresh noise target. Draws come from a seeded ``torch.Generator``
 (not bit-equal to the reference's ``jax.random`` draws; the tests hand
 both packages the same batches instead).
 """
@@ -12,9 +15,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.diffusion.ddpm import DiffusionCfg, q_sample
+from repro_torch.diffusion.ddpm import (
+    DiffusionCfg, collect_xt_dataset, q_sample,
+)
 from repro_torch.models.dit import DiTCfg, dit_apply
 
 
@@ -22,13 +28,46 @@ def build_dit_calibration(dcfg: DiTCfg, dif: DiffusionCfg, sched,
                           x0_source: Callable[[int, torch.Generator], Any],
                           generator: torch.Generator, n_per_group: int = 32,
                           batch: int = 8, n_classes: Optional[int] = None,
-                          device=None) -> List[Tuple[Dict[str, Any], int]]:
+                          device=None, *, params=None,
+                          harvest_trajectory: bool = False,
+                          steps: Optional[int] = None
+                          ) -> List[Tuple[Dict[str, Any], int]]:
     """[(batch_dict, group)] with ``n_per_group`` samples per group;
     batch_dict = {'xt', 't', 'y', 'noise'}. ``x0_source(n, generator)``
-    returns (n, H, W, C) source latents on ``device``."""
+    returns (n, H, W, C) source latents on ``device``.
+
+    With ``harvest_trajectory`` (``params`` required; ``x0_source`` is
+    unused) each group's x_t is harvested at t = (g + 0.5) T / G from a
+    sampler run of ``steps`` respaced steps (default T); a t the respaced
+    chain skips yields no batch for that group, as in the reference."""
     G, T = dif.tgq_groups, dif.T
     n_classes = n_classes or dcfg.n_classes
     out = []
+    if harvest_trajectory:
+        if params is None:
+            raise ValueError("harvest_trajectory=True needs params")
+        eps_fn = lambda x, t, y, ctx: dit_apply(params, dcfg, x, t, y)
+        for g in range(G):
+            want = np.array([int((g + 0.5) * T / G)])
+            y = torch.randint(0, n_classes, (n_per_group,),
+                              generator=generator, device=device)
+            shape = (n_per_group, dcfg.img_size, dcfg.img_size, dcfg.in_ch)
+            tuples = collect_xt_dataset(eps_fn, dif, sched, shape, y,
+                                        generator, steps or T, want,
+                                        device=device)
+            for xt, t, yy in tuples:
+                xt = torch.from_numpy(xt).to(device)
+                yy = torch.from_numpy(yy).to(device)
+                noise = torch.randn(xt.shape, generator=generator,
+                                    device=device)
+                for s in range(0, n_per_group, batch):
+                    sl = slice(s, s + batch)
+                    n = xt[sl].shape[0]
+                    out.append(({"xt": xt[sl],
+                                 "t": torch.full((n,), t, dtype=torch.int64,
+                                                 device=device),
+                                 "y": yy[sl], "noise": noise[sl]}, g))
+        return out
     for g in range(G):
         lo, hi = g * T // G, (g + 1) * T // G
         for s in range(0, n_per_group, batch):

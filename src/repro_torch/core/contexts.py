@@ -1,10 +1,13 @@
-"""Op contexts of the PTQ engine — port of the serving-path part of
-``repro/core/contexts.py``.
+"""Op contexts of the PTQ engine — port of ``repro/core/contexts.py``.
 
 - ``RecordingContext``   — one fp forward; discovers every quantizable op,
   its shapes and input provenance (post-softmax / post-GELU marks).
 - ``CalibrationContext`` — fp forwards over the calibration set; stores
   (row-subsampled) operand tensors per op, tagged with the TGQ group.
+- ``TapContext`` / ``ShapeContext`` — the Fisher taps of the HO search:
+  a zero tensor added to every op's output, whose gradient
+  (``torch.autograd.grad``) is dL/dz; and the pass that records the
+  outputs' shapes to size the taps (``core/fisher.py``).
 - ``QuantContext``       — applies the calibrated quantizers: fake-quant
   by default, or (``kernel=True``) the packed linears through the CUDA
   kernels B1/B2 (8 and 6 bits) and B4/B5 (4 bits), and whole attention
@@ -16,14 +19,13 @@
   leaves without.
 
 Provenance uses tensor identity: ``act(name, x, kind)`` marks ``id(x)`` so
-the directly consuming matmul knows its operand's distribution. The
-Fisher tap contexts belong to the HO slice and are not ported yet.
+the directly consuming matmul knows its operand's distribution.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -129,9 +131,14 @@ class CalibrationContext(OpContext):
     store[name] = list per batch: linear {'x': rows, 'tg': int};
     einsum {'a': array, 'b': array (unless b_is_weight), 'tg': int}.
     Weights are captured once in ``weights[name]`` (numpy, f32 for bf16).
+    ``act_store[name]`` holds the rows of the act hooks in ``hook_acts``
+    (quantized at the hook, not at a consuming matmul).
     """
     registry: Dict[str, OpInfo] = dataclasses.field(default_factory=dict)
     store: Dict[str, List[dict]] = dataclasses.field(default_factory=dict)
+    act_store: Dict[str, List[np.ndarray]] = dataclasses.field(
+        default_factory=dict)
+    hook_acts: frozenset = frozenset()
     weights: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     max_rows_per_batch: int = 256
     max_batch_sub: int = 4
@@ -171,6 +178,61 @@ class CalibrationContext(OpContext):
                 rec["b"] = _host(b[sub])
             self.store.setdefault(name, []).append(rec)
         return torch.einsum(spec, a, b)
+
+    def act(self, name, x, kind):
+        if name in self.hook_acts and name not in self._seen:
+            self._seen.add(name)
+            self.act_store.setdefault(name, []).append(_subsample_rows(
+                x, self.max_rows_per_batch, stable_seed(name, self.seed)))
+        return x
+
+
+@dataclasses.dataclass
+class TapContext(OpContext):
+    """Adds ``taps[name]`` to every op output; the gradient of the loss
+    with respect to a tap is dL/dz of its op. A linear is tapped on its
+    pre-gate output (after the norm-modulate, the matmul and the bias,
+    before ``gate_residual``): dL/dz is defined on the op's own output.
+    Only call sites with the tap's recorded shape are tapped."""
+    taps: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def _tap(self, name, y):
+        t = self.taps.get(name)
+        if t is not None and tuple(t.shape) == tuple(y.shape):
+            y = y + t
+        return y
+
+    def linear(self, name, x, w, b=None, norm_mod=None, gate_residual=None):
+        x = apply_norm_mod(x, norm_mod)
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return apply_gate_residual(self._tap(name, y), gate_residual)
+
+    def einsum(self, name, spec, a, b, b_is_weight=False):
+        return self._tap(name, torch.einsum(spec, a, b))
+
+    def act(self, name, x, kind):
+        return x
+
+
+@dataclasses.dataclass
+class ShapeContext(OpContext):
+    """Records each op's OUTPUT (shape, dtype), first call site first."""
+    shapes: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+
+    def linear(self, name, x, w, b=None, norm_mod=None, gate_residual=None):
+        x = apply_norm_mod(x, norm_mod)
+        y = x @ w
+        if b is not None:
+            y = y + b
+        self.shapes.setdefault(name, (tuple(y.shape), y.dtype))
+        return apply_gate_residual(y, gate_residual)
+
+    def einsum(self, name, spec, a, b, b_is_weight=False):
+        y = torch.einsum(spec, a, b)
+        self.shapes.setdefault(name, (tuple(y.shape), y.dtype))
+        return y
 
     def act(self, name, x, kind):
         return x

@@ -1,8 +1,9 @@
-"""DDPM substrate for serving — port of the serving part of
-``repro/diffusion/ddpm.py``: schedules, the forward process, respacing,
-TGQ group lookup, the CFG-paired per-request-key sampler, and the
-slot-wise chunked sampler of the continuous-batching engine
-(``make_slot_schedule``, ``ddpm_init_latent``, ``ddpm_chunk_slots``).
+"""DDPM substrate — port of ``repro/diffusion/ddpm.py``: schedules, the
+forward process, respacing, TGQ group lookup, the CFG-paired
+per-request-key sampler, the slot-wise chunked sampler of the
+continuous-batching engine (``make_slot_schedule``, ``ddpm_init_latent``,
+``ddpm_chunk_slots``), and the calibration-side Python-loop sampler and
+trajectory harvest (``ddpm_sample_python``, ``collect_xt_dataset``).
 
 PyTorch runs eagerly, so the reference's ``lax.scan`` is a Python loop.
 In the sync sampler the timestep and its TGQ group are host ints; in the
@@ -283,3 +284,71 @@ def ddpm_chunk_slots(eps_fn: Callable, cfg: DiffusionCfg, slot_sched, x,
         pos = torch.where(run, pos + 1, pos)
     bad = ~torch.isfinite(x.reshape(B, -1)).all(dim=1)
     return x, pos, bad
+
+
+# ---------------------------------------------------------------------------
+# calibration-side sampling (Phase 1 of Algorithm 1)
+# ---------------------------------------------------------------------------
+def _ancestral(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
+               generator: torch.Generator, steps: Optional[int], ctx,
+               clip_x0: Optional[float], device, visit=None):
+    """The reference's Python-loop ancestral sampler, the draws from
+    ``generator``; ``visit(x, t)`` sees each x_t before its step."""
+    dev = resolve_device(device)
+    steps = steps or cfg.T
+    use_ts = respaced_timesteps(cfg.T, steps)
+    rs = respaced_schedule(sched, use_ts)
+    n = len(use_ts)
+    x = torch.randn(shape, generator=generator, device=dev)
+    for i in range(n):
+        t_orig = int(use_ts[i])
+        idx = n - 1 - i
+        if visit is not None:
+            visit(x, t_orig)
+        tb = torch.full((shape[0],), t_orig, dtype=torch.int64, device=dev)
+        eps = eps_fn(x, tb, y, ctx.with_tgroup(
+            tgroup_of(t_orig, cfg.T, cfg.tgq_groups))).float()
+        abar, abar_prev = rs["abar"][idx], rs["abar_prev"][idx]
+        beta, alpha = rs["betas"][idx], rs["alphas"][idx]
+        x0 = (x - float(np.sqrt(1 - abar)) * eps) / float(np.sqrt(abar))
+        if clip_x0 is not None:
+            x0 = torch.clamp(x0, -clip_x0, clip_x0)
+        mean = (float(np.sqrt(abar_prev) * beta / (1 - abar)) * x0
+                + float(np.sqrt(alpha) * (1 - abar_prev) / (1 - abar)) * x)
+        if idx > 0:
+            x = mean + float(np.sqrt(rs["post_var"][idx])) * torch.randn(
+                shape, generator=generator, device=dev)
+        else:
+            x = mean
+    return x
+
+
+def ddpm_sample_python(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
+                       generator: torch.Generator,
+                       steps: Optional[int] = None, ctx=_FP,
+                       clip_x0: Optional[float] = None, device=None):
+    """Python-loop sampler for calibration capture: eager contexts see
+    every step's activations. Draws come from ``generator`` (on
+    ``device``, default ``"cuda"``)."""
+    with torch.no_grad():
+        return _ancestral(eps_fn, cfg, sched, shape, y, generator, steps,
+                          ctx, clip_x0, device)
+
+
+def collect_xt_dataset(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
+                       generator: torch.Generator, steps: int, want_ts,
+                       ctx=_FP, device=None):
+    """Run the sampler and harvest (x_t, t, y) tuples (numpy x_t and y) at
+    the requested original-chain timesteps — the calibration set from the
+    model's own sampling trajectory (Q-Diffusion / TQ-DiT protocol)."""
+    want = set(int(t) for t in want_ts)
+    out = []
+
+    def visit(x, t):
+        if t in want:
+            out.append((x.detach().cpu().numpy(), t,
+                        torch.as_tensor(y).cpu().numpy()))
+    with torch.no_grad():
+        _ancestral(eps_fn, cfg, sched, shape, y, generator, steps, ctx,
+                   None, device, visit)
+    return out

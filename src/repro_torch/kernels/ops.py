@@ -25,7 +25,8 @@ The vector never leaves the device.
 
 Off the serving path, the public kernel API of ``repro/kernels/ops.py``:
 ``flash_attention(mask=...)`` (the boolean mask of B3, B3b and B8),
-``softmax_mrq_op`` (B12) and ``act_mrq_op`` (B13).
+``softmax_mrq_op`` (B12), ``act_mrq_op`` (B13) and ``quantize_int8``
+(elementwise codes, no kernel in either package).
 """
 from __future__ import annotations
 
@@ -51,7 +52,9 @@ from repro_torch.kernels.int8_fused import (
     int8_matmul_fq, int8_matmul_fq_vec, int8_matmul_mrq_fq,
     int8_matmul_mrq_fq_vec, _CACHE, cached_layout, is_vec,
 )
-from repro_torch.kernels.ref import NEG_INF, _ceil, pack_int4
+from repro_torch.kernels.ref import (
+    NEG_INF, _ceil, pack_int4, quantize_int8_ref,
+)
 from repro_torch.kernels.softmax_mrq import (
     softmax_mrq, softmax_mrq_codes, softmax_mrq_codes_vec,
 )
@@ -341,6 +344,15 @@ def convert_for_kernels(qparams: Dict[str, dict],
                 qp["int8_pv"] = ppack
         out[name] = qp
     return out
+
+
+def quantize_int8(x, scale, zero):
+    """fp -> signed int8 codes, elementwise with any broadcast of
+    ``scale`` / ``zero`` (``ref.quantize_int8_ref``, on every device, as
+    the reference computes it: an elementwise op, not a kernel). The
+    serving path codes inside the fused linears' prologue pass and never
+    materialises these codes."""
+    return quantize_int8_ref(x, scale, zero)
 
 
 # ---------------------------------------------------------------------------

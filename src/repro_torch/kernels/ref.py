@@ -167,6 +167,16 @@ TOLERANCES = {
     "composed_atol_steps": (2.0, "a flipped code moves an output by at "
                             "most one coarse region step x max|v code| "
                             "(s2 * s_v * (half-1)); bound: two such steps"),
+    # the HO search (core/search.py) vs the reference's, the same inputs
+    "ho_near_tie_rel": (1e-4, "the candidates are equal bit for bit, but "
+                        "each candidate's error sum(G (yhat - y)^2) is an "
+                        "f32 product and reduction that torch (MKL, its "
+                        "own summation order) and XLA (Eigen) round "
+                        "differently, as they do the Fisher gradients: "
+                        "where two candidates nearly tie, the argmin may "
+                        "pick the other; such a choice must have a "
+                        "float64 objective within this relative distance "
+                        "of the reference's choice, and is counted"),
     # whole forwards
     "dit_forward_plain_vs_jax_rel": (2e-2, "ulp differences (gelu, "
                                      "softmax, layernorm stats) flip a few "

@@ -27,13 +27,28 @@ The GEMMs (``gemm_kernel``, one kernel for every int8 linear, and
 run records each linear launch's (M, K, N) in order, and each GEMM kernel
 event, in start order, takes the op of its launch (qkv, proj, fc1, fc2,
 ada; the others under "rest").
+
+The profiler can drop kernel events on the H100 (one in 90, or every
+event of a trace). Every counted launch (``kernels.LAUNCHES``) makes at least
+one event of the port's own kernels, and every recorded GEMM launch one
+GEMM event, so a trace with fewer is profiled again (another step, or
+chunk), up to ``gemm_times.PROFILE_TRIES`` traces, and then this raises:
+a step's device time never silently misses a kernel.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import sys
 import time
+
+# the port's own kernels (``csrc/``): each counted launch makes at least
+# one event of these
+PORT_KERNELS = ("gemm_kernel", "gemm4_kernel", "flash_kernel",
+                "prologue_rows_kernel", "prologue_chunks_kernel",
+                "qk_kernel", "softmax_codes_kernel", "pv_kernel",
+                "act_mrq_kernel")
 
 
 def op_of(M: int, K: int, N: int, cfg) -> str:
@@ -42,6 +57,21 @@ def op_of(M: int, K: int, N: int, cfg) -> str:
     return {(True, d, 3 * d): "qkv", (True, d, d): "proj",
             (True, d, f): "fc1", (True, f, d): "fc2",
             (False, d, 6 * d): "ada"}.get((tokens, K, N), "rest")
+
+
+def lost_events(names, launched: int, shapes) -> "str | None":
+    """Why a trace's kernel events (``names``) must have lost some, or
+    None: fewer events of the port's own kernels than ``launched`` counted
+    launches, or a GEMM family (``shapes``: its recorded launch shapes by
+    event-name key) with another number of events than launches."""
+    from repro_torch.launch.gemm_times import kernel_name
+    ours = sum(kernel_name(n).split("<")[0] in PORT_KERNELS for n in names)
+    short = [k for k, v in shapes.items()
+             if len(v) != sum(k in n for n in names)]
+    if ours >= launched and not short:
+        return None
+    return (f"the profiler recorded {ours} events of the port's kernels for "
+            f"{launched} launches (GEMM families short: {short})")
 
 
 def gemm_by_op(events, shapes, cfg):
@@ -77,12 +107,15 @@ def main(argv=None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
+    from repro_torch.launch.gemm_times import PROFILE_TRIES
     from repro_torch.launch.serve import build, fail_on_degradation
     from repro_torch.serving.batching import coalesce
 
-    if args.async_mode:        # a chain long enough for two chunks
+    if args.async_mode:        # a chain long enough for every trace's chunk
         cfg, _, art, engine, sq, _ = build(
-            "dit-xl-2", False, args.quantize, 0, 4, 4, 3 * args.steps, 1.5,
+            "dit-xl-2", False, args.quantize, 0, 4, 4,
+            (PROFILE_TRIES + 2) * args.steps, 1.5,
             device="cuda", async_kw=dict(chunk=args.steps, pipeline=1),
             attn_impl=args.attn_impl)
         for r in sq.pending:
@@ -110,12 +143,26 @@ def main(argv=None) -> None:
     for key, mod in families.items():
         mod._launch = recorder(key)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        for _ in range(PROFILE_TRIES):
+            for v in shapes.values():
+                v.clear()
+            before = sum(kernels.LAUNCHES.values())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launched = sum(kernels.LAUNCHES.values()) - before
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            lost = lost_events([e.name for e in events], launched, shapes)
+            if lost is None:
+                break
+            print(f"{lost}; profiling again", file=sys.stderr, flush=True)
+        else:
+            raise RuntimeError(f"the profiler lost kernel events in "
+                               f"{PROFILE_TRIES} traced steps")
     finally:
         for key, mod in families.items():
             mod._launch = launches[key]
@@ -124,14 +171,13 @@ def main(argv=None) -> None:
     by_name = collections.Counter()
     calls = collections.Counter()
     gemm = {k: [] for k in families}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-            calls[e.name] += 1
-            for key in families:
-                if key in e.name:
-                    gemm[key].append((e.time_range.start,
-                                      e.time_range.elapsed_us()))
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us()
+        calls[e.name] += 1
+        for key in families:
+            if key in e.name:
+                gemm[key].append((e.time_range.start,
+                                  e.time_range.elapsed_us()))
     dev_us = sum(by_name.values())
     n = args.steps
     smi = torch.cuda.get_device_name(0)

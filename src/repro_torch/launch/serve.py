@@ -1,16 +1,25 @@
 """Serving launcher for the port — the DiT branch of ``repro/launch/serve.py``.
 
 A request stream is coalesced into fixed-shape microbatches (step
-bucketed, padded, CFG-paired) and served by ``ServeEngine`` on one GPU;
-``--quantize w8a8|w6a6|w4a4 --calib range`` range-calibrates on the card
-and serves through the CUDA kernels (w8a8 and w6a6: fused int8 linears and
-flash MRQ attention; w4a4: packed-int4 linears and packed-kv flash).
-``--attn-impl composed`` records the composed three-kernel attention
-chain in the recipe instead (B9a -> B10a -> B9b; unset keeps the
-recipe's default, flash).
+bucketed, padded, CFG-paired) and served by ``ServeEngine`` on one GPU.
+``--quantize w8a8|w6a6|w4a4`` calibrates on the card — ``--calib range``
+(min/max ranges, seconds) or ``--calib ho`` (the paper's Hessian-guided
+search, ``n_alpha=8, rounds=2``) — and serves through the CUDA kernels
+(w8a8 and w6a6: fused int8 linears and flash MRQ attention; w4a4:
+packed-int4 linears and packed-kv flash). ``--attn-impl composed``
+records the composed three-kernel attention chain in the recipe instead
+(B9a -> B10a -> B9b; unset keeps the recipe's default, flash).
 
-  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w4a4 \\
-      --requests 8 --microbatch 4 --steps 20 --cfg-scale 1.5
+``--save-artifact DIR`` saves the calibrated ``QuantArtifact`` (needs
+``--quantize``); ``--load-artifact DIR`` cold-starts from one: no
+calibration runs, the artifact's own ``DiffusionCfg`` is served, and a
+``--quantize`` width other than the artifact's exits with a message. The
+served samples equal the calibrating process's bit for bit.
+
+  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w8a8 \\
+      --calib ho --save-artifact /ckpts/dit_w8a8 --requests 8 --steps 20
+  python -m repro_torch.launch.serve --arch dit-xl-2 --quantize w8a8 \\
+      --load-artifact /ckpts/dit_w8a8 --requests 8 --steps 20
 
 ``--async`` serves the same requests through ``AsyncServeEngine``'s
 continuous-batching slot pool (``--chunk`` steps per dispatch, the
@@ -20,8 +29,7 @@ engine's bit for bit, and a serve that took a rung of the degradation
 ladder exits non-zero.
 
 ``--smoke`` uses the tiny config; ``--device cpu`` runs the plain
-versions on the CPU. ``--load-artifact``/``--save-artifact``, ``--dp``
-and the LM branch wait for later slices.
+versions on the CPU. ``--dp`` and the LM branch wait for later slices.
 """
 from __future__ import annotations
 
@@ -47,14 +55,19 @@ def fake_quant_fallback_warning(artifact):
 
 def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
           microbatch: int, steps: int, cfg_scale: float, device=None,
-          async_kw=None, attn_impl=None):
+          async_kw=None, attn_impl=None, calib: str = "range",
+          save_artifact=None, load_artifact=None):
     """Model, artifact (or None), engine and scheduler for one serve —
     the launcher's whole set-up, shared with ``chip_smoke.py``. With
     ``async_kw`` (``chunk``, ``max_retries``, ``deadline_s``, ...) the
     engine is an ``AsyncServeEngine``; the scheduler's queue then holds
     the requests to submit to it. ``attn_impl`` ('flash' or 'composed';
     None keeps the recipe's default) goes into the calibration recipe,
-    whose context the engine serves."""
+    whose context the engine serves (or overrides a loaded artifact's).
+    ``calib`` picks the method ('range' or 'ho'); ``save_artifact`` saves
+    the calibrated artifact there; ``load_artifact`` serves a saved one
+    instead of calibrating. ``info`` holds ``calib_s`` / ``save_s`` or
+    ``load_s``, wall seconds."""
     import torch
 
     from repro_torch.configs import dit_xl_2
@@ -66,31 +79,59 @@ def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
 
     if arch != "dit-xl-2":
         raise SystemExit(f"--arch {arch}: the port serves dit-xl-2 only "
-                         "(the LM zoo is ROADMAP queue 1, item 13)")
+                         "(the LM zoo is ROADMAP queue 1, item 8)")
+    if save_artifact is not None and (quantize == "none"
+                                      or load_artifact is not None):
+        raise ValueError("save_artifact needs quantize and excludes "
+                         "load_artifact: there is no freshly calibrated "
+                         "artifact to save otherwise")
     dev = resolve_device(device)
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
     cfg = dit_xl_2.smoke() if smoke else dit_xl_2.full()
     params = perturb_init(dit_init(seed, cfg, device=dev), seed)
     dif = DiffusionCfg(T=1000)
     sched = make_schedule(dif)
     artifact, ctx = None, None
     info = {}
-    if quantize != "none":
+    if load_artifact is not None:
+        from repro_torch.quant.artifact import QuantArtifact
+        t0 = time.perf_counter()
+        artifact = QuantArtifact.load(load_artifact, device=dev)
+        sync()
+        info["load_s"] = time.perf_counter() - t0
+        if quantize != "none" and artifact.recipe.bits != quantize:
+            raise SystemExit(
+                f"--quantize {quantize} but the artifact at {load_artifact} "
+                f"was calibrated at {artifact.recipe.bits} "
+                f"({artifact.summary()})")
+        artifact.check_params(params)
+        # the artifact's own DiffusionCfg is served, not the CLI's chain
+        dif = artifact.dif_cfg()
+        sched = make_schedule(dif)
+    elif quantize != "none":
         from repro_torch.quant.api import quantize as run_quantize
         from repro_torch.quant.recipe import QuantRecipe
+        kw = {"n_alpha": 8, "rounds": 2} if calib == "ho" else {}
+        if attn_impl is not None:
+            kw["attn_impl"] = attn_impl
         t0 = time.perf_counter()
-        attn_kw = {} if attn_impl is None else {"attn_impl": attn_impl}
         artifact = run_quantize(params, cfg, dif,
-                                QuantRecipe(bits=quantize, method="range",
-                                            seed=seed, **attn_kw),
+                                QuantRecipe(bits=quantize, method=calib,
+                                            seed=seed, **kw),
                                 sched=sched,
                                 provenance={"arch": arch, "smoke": smoke})
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync()
         info["calib_s"] = time.perf_counter() - t0
+        if save_artifact is not None:
+            t0 = time.perf_counter()
+            artifact.save(save_artifact)
+            info["save_s"] = time.perf_counter() - t0
+    if artifact is not None:
         msg = fake_quant_fallback_warning(artifact)
         if msg is not None:
             warnings.warn(msg, RuntimeWarning, stacklevel=2)
-        ctx = artifact.context()
+        ctx = artifact.context(attn_impl=attn_impl)
     if async_kw is not None:
         engine = AsyncServeEngine(params, cfg, dif, sched, ctx=ctx,
                                   microbatch=microbatch,
@@ -139,7 +180,15 @@ def main(argv=None) -> None:
     ap.add_argument("--cfg-scale", type=float, default=1.0)
     ap.add_argument("--quantize", default="none",
                     choices=("none", "w8a8", "w6a6", "w4a4"))
-    ap.add_argument("--calib", default="range", choices=("range",))
+    ap.add_argument("--calib", default="range", choices=("range", "ho"),
+                    help="calibration: range (min/max, seconds) or ho (the "
+                         "paper's Hessian-guided search)")
+    ap.add_argument("--save-artifact", default=None, metavar="DIR",
+                    help="after calibrating, save the QuantArtifact so later "
+                         "processes cold-start with --load-artifact")
+    ap.add_argument("--load-artifact", default=None, metavar="DIR",
+                    help="serve a saved QuantArtifact: no calibration runs; "
+                         "with --quantize the artifact's bits must match")
     ap.add_argument("--attn-impl", default=None,
                     choices=("flash", "composed"),
                     help="attention lowering: 'flash' = one fused CUDA "
@@ -166,8 +215,15 @@ def main(argv=None) -> None:
                          "a structured FAILED outcome")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.save_artifact is not None and (args.quantize == "none"
+                                           or args.load_artifact is not None):
+        ap.error("--save-artifact requires --quantize (and excludes "
+                 "--load-artifact): there is no freshly calibrated "
+                 "artifact to save otherwise")
 
     import numpy as np
+
+    from repro_torch.quant import api
 
     async_kw = None
     if args.async_mode:
@@ -177,11 +233,19 @@ def main(argv=None) -> None:
     cfg, _, artifact, engine, sq, info = build(
         args.arch, args.smoke, args.quantize, args.seed, args.requests,
         args.microbatch, args.steps, args.cfg_scale, device=args.device,
-        async_kw=async_kw, attn_impl=args.attn_impl)
-    if artifact is not None:
-        print(f"range-calibrated {artifact.summary()} in "
+        async_kw=async_kw, attn_impl=args.attn_impl, calib=args.calib,
+        save_artifact=args.save_artifact, load_artifact=args.load_artifact)
+    if args.load_artifact is not None:
+        print(f"loaded {artifact.summary()} in {info['load_s']:.2f}s; "
+              f"calibrations run: {api.CALIBRATIONS}; attention "
+              f"{engine.ctx.attn_impl}")
+    elif artifact is not None:
+        print(f"{args.calib}-calibrated {artifact.summary()} in "
               f"{info['calib_s']:.1f}s; attention "
               f"{artifact.recipe.attn_impl}")
+        if args.save_artifact is not None:
+            print(f"saved artifact -> {args.save_artifact} in "
+                  f"{info['save_s']:.2f}s")
     if args.async_mode:
         _serve_async(engine, sq, args)
         return

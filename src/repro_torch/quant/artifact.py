@@ -1,10 +1,21 @@
-"""`QuantArtifact` — reading the reference's calibrated quantization state.
+"""`QuantArtifact` — calibrated quantization state, saved and loaded.
 
-Port of the read side of ``repro/quant/artifact.py``: an artifact written
-by ``repro.quant.QuantArtifact.save`` (``artifact.json`` + npz shards, no
-pickle) loads here with every leaf equal — quantizer containers, kernel
-packs and metadata — as torch tensors on the requested device. Writing
-(``save``) arrives with the calibration slice (ROADMAP queue 1, item 10).
+Port of ``repro/quant/artifact.py``. The on-disk format is the
+reference's, so either package reads what the other writes::
+
+    <path>/artifact.json        # version, recipe, meta, structure spec,
+                                # the leaf shards' hashes
+    <path>/step_00000000/       # array leaves (checkpoint/ckpt.py)
+        manifest.json, shard_00000.npz, _COMMITTED
+    <path>/latest
+
+``save`` encodes the qparams tree into a JSON spec (quantizer containers
+by class name, Python scalars inline, tensors as indexed leaves in
+numpy's dtypes) and commits the leaves first, then ``artifact.json``;
+``load`` refuses a json whose recorded shard hashes do not match the
+committed leaves (an overwrite torn between the two writes). Loaded
+leaves are torch tensors on the requested device, so a deployment
+calibrates once and cold-starts from disk.
 """
 from __future__ import annotations
 
@@ -30,6 +41,39 @@ _QUANTIZERS = {c.__name__: c for c in
                (UniformQ, SymQ, ChannelQ, MRQSoftmaxQ, MRQSignedQ, TGQ)}
 
 
+def _encode(obj: Any, leaves: List[np.ndarray], where: str = "") -> dict:
+    """The JSON spec of ``obj``, appending its array leaves to
+    ``leaves`` (the reference's encoding, node for node)."""
+    if obj is None:
+        return {"k": "none"}
+    if isinstance(obj, bool) or isinstance(obj, (int, float, str)) and \
+            not isinstance(obj, np.generic):
+        return {"k": "py", "v": obj}
+    if isinstance(obj, dict):
+        if not all(isinstance(k, str) for k in obj):
+            raise TypeError("artifact dicts must be str-keyed")
+        return {"k": "dict", "items": {k: _encode(v, leaves, f"{where}/{k}")
+                                       for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"k": "tuple" if isinstance(obj, tuple) else "list",
+                "items": [_encode(v, leaves, f"{where}[{i}]")
+                          for i, v in enumerate(obj)]}
+    if type(obj).__name__ in _QUANTIZERS and dataclasses.is_dataclass(obj):
+        return {"k": "q", "cls": type(obj).__name__,
+                "fields": {f.name: _encode(getattr(obj, f.name), leaves,
+                                           f"{where}.{f.name}")
+                           for f in dataclasses.fields(obj)}}
+    if isinstance(obj, (torch.Tensor, np.ndarray, np.generic)):
+        try:
+            leaves.append(ckpt.to_numpy(obj))
+        except TypeError as e:
+            raise TypeError(f"artifact leaf {where or '/'}: {e}") from None
+        return {"k": "arr", "i": len(leaves) - 1}
+    raise TypeError(f"cannot serialize {type(obj).__name__} into a "
+                    "QuantArtifact (supported: dict/list/tuple, scalars, "
+                    f"tensors, arrays, {sorted(_QUANTIZERS)})")
+
+
 def _decode(spec: dict, leaves: List[Any]) -> Any:
     k = spec["k"]
     if k == "none":
@@ -51,7 +95,9 @@ def _decode(spec: dict, leaves: List[Any]) -> Any:
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """A leaf as a tensor of its own shape (``np.ascontiguousarray``
+    would give a 0-d leaf the shape (1,))."""
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 @dataclasses.dataclass
@@ -162,6 +208,30 @@ class QuantArtifact:
                 f"linear packs, {c['flash_attn_mrq']} int8 and "
                 f"{c['flash_attn_mrq_packed_kv']} packed-kv attention "
                 f"blocks, G={self.meta.get('tgq_groups')})")
+
+    def save(self, path: str) -> str:
+        """Save under ``path`` (a directory); returns ``path``. The leaf
+        shards commit first, then ``artifact.json`` replaces atomically,
+        recording the shards' hashes (see the module docstring)."""
+        leaves: List[np.ndarray] = []
+        spec = _encode(self.qparams, leaves)
+        os.makedirs(path, exist_ok=True)
+        step_dir = ckpt.save(path, step=0, tree=leaves, keep=1)
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            leaf_hashes = json.load(f)["hashes"]
+        doc = {
+            "version": ARTIFACT_VERSION,
+            "recipe": self.recipe.to_dict(),
+            "meta": self.meta,
+            "n_leaves": len(leaves),
+            "leaf_hashes": leaf_hashes,
+            "spec": spec,
+        }
+        tmp = os.path.join(path, _ARTIFACT_JSON + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, os.path.join(path, _ARTIFACT_JSON))
+        return path
 
     @classmethod
     def load(cls, path: str, expect_recipe: Optional[QuantRecipe] = None,

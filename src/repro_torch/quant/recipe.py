@@ -110,9 +110,24 @@ class QuantRecipe:
     def abits(self) -> int:
         return BITS[self.bits][1]
 
+    def ptq_config(self, tgq_groups: int):
+        """The equivalent ``PTQConfig`` for the 'ho' pipeline."""
+        from repro_torch.core.ptq import PTQConfig
+        return PTQConfig(
+            wbits=self.wbits, abits=self.abits, rounds=self.rounds,
+            n_alpha=self.n_alpha, use_fisher=self.use_fisher,
+            use_mrq=self.use_mrq, use_tgq=self.use_tgq,
+            tgq_groups=tgq_groups,
+            max_rows_per_batch=self.max_rows_per_batch,
+            skip_patterns=self.skip_patterns,
+            weight_only_patterns=self.weight_only_patterns,
+            fisher_norm=self.fisher_norm, bias_correct=self.bias_correct,
+            channel_balance=self.channel_balance,
+            balance_alpha=self.balance_alpha, seed=self.seed)
+
     @property
     def kernel_deployable(self) -> bool:
-        """Every named bit-width lowers onto a Pallas kernel family:
+        """Every named bit-width lowers onto a CUDA kernel family:
         w8a8/w6a6 on the fused int8 kernels (byte codes, narrower clip
         range at 6 bits), w4a4 on the packed-int4 kernels (two nibbles
         per byte, per-K-group weight scales)."""

@@ -212,6 +212,24 @@ def test_profile_step_splits_gemm_by_op():
     assert gemm_by_op(events[1:], shapes, cfg) is None
 
 
+def test_profile_step_detects_lost_kernel_events():
+    """``profile_step`` traces again when the profiler lost events: fewer
+    events of the port's own kernels than counted launches, or a GEMM
+    family whose events are not one per recorded launch."""
+    from repro_torch.launch.profile_step import lost_events
+    gemm = "void (anonymous namespace)::gemm_kernel<false>(CUtensorMap_st)"
+    names = [gemm, "void (anonymous namespace)::prologue_rows_kernel<false, "
+             "__nv_bfloat16, __nv_bfloat16>(int)",
+             "void (anonymous namespace)::flash_kernel<__nv_bfloat16, 3, "
+             "80, 1, true>(int)", "void at::native::elementwise_kernel<4>()"]
+    shapes = {"gemm_kernel<": [(8, 64, 64)], "gemm4_kernel<": []}
+    assert lost_events(names, 2, shapes) is None
+    assert "3 events of the port's kernels for 4 launches" in \
+        lost_events(names, 4, shapes)
+    assert "gemm_kernel<" in lost_events(names[1:], 1, shapes)
+    assert lost_events([], 2, shapes) is not None     # a whole trace
+
+
 FLASH_CASES = [(bits, G, S, D) for bits in (8, 6) for G in (1, 3)
                for S, D in ((100, 72), (200, 16))]
 

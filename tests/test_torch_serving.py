@@ -281,10 +281,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny):
 def test_calib_data_group_tag_validation(tiny, method):
     """A ``calib_data`` group tag outside [0, G) raises ``ValueError`` in
     both packages' ``quantize``, for either method, before the method is
-    dispatched (the port's 'ho' is not ported and would otherwise raise
-    ``NotImplementedError``); overriding the group count with
-    caller-built batches raises too (``tests/test_quant_api.py``'s
-    test of the same name, on both packages)."""
+    dispatched (these batches would fail inside the 'ho' capture
+    otherwise); overriding the group count with caller-built batches
+    raises too (``tests/test_quant_api.py``'s test of the same name, on
+    both packages)."""
     from repro_torch.quant.api import quantize
     from repro_torch.quant.recipe import QuantRecipe
     jcfg, jp, tcfg, tp = tiny
