@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
 and continuous-batching, flash and composed attention, its HO calibration
-with a saved artifact cold-started in a fresh process, and its public
+with a saved artifact cold-started in a fresh process, its evaluation
+path (the research sampler, FD / sFD / IS*, noise MSE) and its public
 kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
@@ -136,7 +137,22 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              must report no calibration and dump samples equal to the
              in-memory artifact's bit for bit. Prints the calibration,
              save and load seconds beside range's calibration seconds.
-5. entry points — the public kernel API at the DiT-XL/2 shapes:
+5. eval    — the research sampler and the paper's metrics through the
+             kernels (``repro_torch.quant.eval``). (a) The trained
+             checkpoint's FP and phases 3 and 3b's range and HO artifacts
+             (W8A8, W6A6, W4A4): 128 samples x 40 steps in batches of 64
+             (4,096 token rows a forward), FD / sFD / IS* against 1,024
+             real latents, noise MSE; one row each, finite, launch counts
+             (set to 0 before each sampling, read after) = packed x
+             forwards; a constant-map ``generate_grouped`` equal to
+             ``generate`` bit for bit at W8A8; a mixed map (W8A8 groups
+             0-4, W4A4 5-9) launching both kernel families in one chain.
+             (b) DiT-XL/2 at full width under phase 4b's HO W8A8 and phase
+             4's W4A4 artifacts: one 32-row forward (8,192 token rows) on
+             the kernels equal to the plain versions, 32 samples x 20
+             steps (ms/step and samples/s beside the card), scores against
+             XL-shaped assets, noise MSE by group.
+6. entry points — the public kernel API at the DiT-XL/2 shapes:
              ``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
              ``ops.act_mrq_op`` (GELU and SiLU) and
              ``ops.flash_attention(mask=causal)`` at bits 8 and 4, scalar
@@ -1086,6 +1102,7 @@ WIDTHS = ("w8a8", "w6a6", "w4a4")
 # of 106,496,000 norm-modulated codes move, each a .5-boundary flip
 # (python src/repro_torch/launch/stats_flips.py).
 W8A8_DRIFT = 0.010440
+TRAINED_ARTS = {}      # (method, width) -> the artifacts of phases 3, 3b
 
 
 def trained_setup():
@@ -1144,6 +1161,7 @@ def phase_trained():
         art = quantize(params, cfg, dif, QuantRecipe(bits=bits), sched=sched)
         if art.fallback_ops():
             raise AssertionError(f"{bits} fallback ops: {art.fallback_ops()}")
+        TRAINED_ARTS["range", bits] = art
         drifts[bits] = drift(fp, serve_trained(setup, bits, art.context()))
     for bits, d in drifts.items():
         log(f"trained checkpoint (d=160, 6 layers, 50 steps, 8 requests): "
@@ -1194,6 +1212,7 @@ def phase_trained_ho(setup, fp, range_drifts):
                     raise AssertionError("a second W8A8 HO calibration "
                                          "gave another content hash")
                 break
+        TRAINED_ARTS["ho", bits] = art
         d = drift(fp, serve_trained(setup, f"HO {bits}", art.context()))
         if d != d:
             raise AssertionError(f"HO {bits} drift is not finite")
@@ -1258,9 +1277,11 @@ def serve_width(bits):
     return launches, cfg, params, art, reqs, samples
 
 
-def forward_vs_plain(bits, cfg, params, ctx):
-    """One full-width forward on the kernels against the same forward on
-    the plain versions, on the card."""
+def forward_vs_plain(bits, cfg, params, ctx, batch=8):
+    """One full-width forward of ``batch`` rows (8: the serving 2B; the
+    research sampler's 64 rows of the trained checkpoint, 4,096 token
+    rows, and 32 of DiT-XL/2, 8,192) on the kernels against the same
+    forward on the plain versions, on the card."""
     import torch
 
     from repro_torch import kernels
@@ -1268,10 +1289,10 @@ def forward_vs_plain(bits, cfg, params, ctx):
     from repro_torch.models.dit import dit_apply
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(8, cfg.img_size, cfg.img_size, cfg.in_ch, device="cuda",
-                    generator=gen)
-    t = torch.full((8,), 500, dtype=torch.int64, device="cuda")
-    y = torch.arange(8, device="cuda") % cfg.n_classes
+    x = torch.randn(batch, cfg.img_size, cfg.img_size, cfg.in_ch,
+                    device="cuda", generator=gen)
+    t = torch.full((batch,), 500, dtype=torch.int64, device="cuda")
+    y = torch.arange(batch, device="cuda") % cfg.n_classes
     ctx = ctx.with_tgroup(5)
     with torch.no_grad():
         out_k = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
@@ -1279,8 +1300,9 @@ def forward_vs_plain(bits, cfg, params, ctx):
             out_p = dit_apply(params, cfg, x, t, y, ctx=ctx).float()
     rel = float((out_k - out_p).norm() / out_p.norm())
     tol = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
-    log(f"full width {bits} {ctx.attn_impl} forward, kernels vs plain "
-        f"versions on the card: rel L2 {rel:.3e} (registry {tol})")
+    log(f"full width {bits} {ctx.attn_impl} forward ({batch} rows x "
+        f"{cfg.n_tokens} tokens), kernels vs plain versions on the card: "
+        f"rel L2 {rel:.3e} (registry {tol})")
     if not rel <= tol:
         raise AssertionError(f"{bits} {ctx.attn_impl} forward rel error "
                              f"{rel} > {tol}")
@@ -1324,6 +1346,8 @@ def flash_forward_kernels(bits, cfg, params, ctx):
 
 
 TIMES = {}     # (width, attn_impl, serve) -> (ms/step, req/s), this run
+XL = {}        # phase 5b's DiT-XL/2 cfg, params and two artifacts
+CARD = [""]    # the card's name and power limit (nvidia-smi)
 RANGE_CALIB_S = {}     # width -> full-width range calibration s, this run
 
 
@@ -1555,6 +1579,8 @@ def phase_serve():
         add(launches)
         if bits == "w8a8":
             add(ladder_check(bits, cfg, params, art, composed_ref))
+        if bits == "w4a4":
+            XL["w4a4 range"] = art         # phase 5b samples through it
         del params, art
         torch.cuda.empty_cache()
     log("serve times in this run, flash beside composed (ms/step, req/s):")
@@ -1612,7 +1638,10 @@ def phase_cold_start():
         if samples.shape != (requests, cfg.img_size, cfg.img_size,
                              cfg.in_ch) or not np.isfinite(samples).all():
             raise AssertionError(f"bad HO w8a8 samples {samples.shape}")
-        del params, art, engine
+        # phase 5b samples through the in-memory artifact (the same
+        # perturbed seed-0 params as phase 4's)
+        XL.update({"cfg": cfg, "params": params, "w8a8 HO": art})
+        del engine
         torch.cuda.empty_cache()
         dump = os.path.join(tmp, "cold.npy")
         t0 = time.perf_counter()
@@ -1645,7 +1674,160 @@ def phase_cold_start():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the public kernel API through its entry points
+# phase 5: the evaluation path — research sampler, FD / sFD / IS*, noise MSE
+# ---------------------------------------------------------------------------
+EVAL = dict(n=128, steps=40, batch=64)   # the quality tables' protocol
+XL_EVAL = dict(n=32, steps=20, batch=32)
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 before and read after:
+    (result, launches, wall seconds)."""
+    import torch
+
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def check_launches(name, launches, art, forwards):
+    """Every kernel of the artifact launched once an op a forward, no
+    other kernel."""
+    want = {k: 0 for k in launches}
+    want.update({k: n * forwards for k, n in art.packed_counts().items()})
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches} != packed x "
+                             f"forwards {want}")
+
+
+def eval_row(name, gen, score, mse, secs, steps_run):
+    import numpy as np
+    if not (np.isfinite(gen).all() and all(
+            np.isfinite(v) for v in score.values()) and np.isfinite(mse)):
+        raise AssertionError(f"eval {name}: non-finite samples or scores "
+                             f"{score} mse {mse}")
+    log(f"eval {name}: FD {score['FD']} sFD {score['sFD']} IS* "
+        f"{score['IS*']} noiseMSE {mse:.6g}; sampled {gen.shape[0]} in "
+        f"{secs:.2f} s ({secs / steps_run * 1e3:.2f} ms/step, "
+        f"{gen.shape[0] / secs:.2f} samples/s)")
+
+
+def phase_eval(setup):
+    """5a: the trained checkpoint's FP and the range and HO artifacts of
+    phases 3 and 3b, each first held in one 64-row forward (4,096 token
+    rows) against the plain versions, then sampled with the tables'
+    protocol (128 samples, 40 steps, batches of 64) through the kernels,
+    scored (FD, sFD, IS*
+    against 1,024 real latents) and its noise MSE taken; launches of each
+    sampling = packed x forwards; a constant-map ``generate_grouped``
+    equals ``generate`` bit for bit at W8A8; a mixed map (W8A8 groups
+    0-4, W4A4 5-9) runs both kernel families in one chain. 5b: DiT-XL/2
+    at full width under phase 4b's HO W8A8 and phase 4's W4A4 artifacts:
+    one 32-row forward (8,192 token rows) on the kernels equal to the
+    plain versions, 32 samples x 20 steps sampled, scored against
+    XL-shaped assets, noise MSE by group. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
+    from repro_torch.quant import eval as qeval
+
+    cfg, dif, params, sched, _ = setup
+    total = {}
+    t_phase = time.perf_counter()
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    def sample(ctx, grouped=False, p=params, c=cfg, d=dif, s=sched,
+               proto=EVAL):
+        kw = dict(steps=proto["steps"], n=proto["n"], batch=proto["batch"],
+                  sched=s, device="cuda")
+        if grouped:
+            return counted(lambda: qeval.generate_grouped(p, c, d, ctx,
+                                                          **kw)[0])
+        return counted(lambda: qeval.generate(p, c, d, ctx=ctx, **kw)[0])
+
+    forwards = EVAL["steps"] * -(-EVAL["n"] // EVAL["batch"])
+    gens = {}
+    for method, bits in [(None, "fp")] + [(m, b) for m in ("range", "ho")
+                                          for b in WIDTHS]:
+        art = None if method is None else TRAINED_ARTS[method, bits]
+        ctx = None if art is None else art.context()
+        if art is not None:
+            # the sampler's 64-row (4,096 token rows) forward, which the
+            # mixed map's W4A4 half runs too, against the plain versions
+            forward_vs_plain(f"trained {method} {bits}", cfg, params, ctx,
+                             batch=EVAL["batch"])
+        gen, launches, secs = sample(ctx)
+        if art is not None:
+            check_launches(f"eval {method} {bits}", launches, art, forwards)
+        add(launches)
+        score = qeval.score(gen, cfg, device="cuda")
+        mse = 0.0 if ctx is None else qeval.noise_mse(params, cfg, dif, ctx,
+                                                      device="cuda")
+        name = "FP" if art is None else f"{bits.upper()} {method}"
+        eval_row(f"trained {name}", gen, score, mse, secs, forwards)
+        gens[method, bits] = gen
+
+    ctx8 = TRAINED_ARTS["range", "w8a8"].context()
+    same, launches, _ = sample([ctx8] * dif.tgq_groups, grouped=True)
+    add(launches)
+    equal = np.array_equal(same, gens["range", "w8a8"])
+    log(f"eval trained W8A8 range: generate_grouped with a constant map "
+        f"equals generate bit for bit: {equal}")
+    if not equal:
+        raise AssertionError("constant-map generate_grouped differs from "
+                             "generate")
+    ctx4 = TRAINED_ARTS["range", "w4a4"].context()
+    half = dif.tgq_groups // 2
+    mixed, launches, secs = sample([ctx8] * half + [ctx4] * half,
+                                   grouped=True)
+    add(launches)
+    fams = {f: sum(n for k, n in launches.items() if k.startswith(f))
+            for f in ("int8_", "int4_")}
+    log(f"eval trained mixed map (W8A8 groups 0-{half - 1}, W4A4 "
+        f"{half}-{dif.tgq_groups - 1}): launches {launches}")
+    if not (fams["int8_"] and fams["int4_"]):
+        raise AssertionError(f"the mixed chain ran one kernel family: {fams}")
+    eval_row("trained mixed W8A8/W4A4 range", mixed,
+             qeval.score(mixed, cfg, device="cuda"), 0.0, secs, forwards)
+
+    # 5b: DiT-XL/2 at full width
+    xcfg, xparams = XL["cfg"], XL["params"]
+    xdif = DiffusionCfg(T=1000)
+    xsched = make_schedule(xdif)
+    xsteps = XL_EVAL["steps"]
+    for name in ("w8a8 HO", "w4a4 range"):
+        art = XL[name]
+        ctx = art.context()
+        forward_vs_plain(name, xcfg, xparams, ctx, batch=XL_EVAL["batch"])
+        gen, launches, secs = sample(ctx, p=xparams, c=xcfg, d=xdif,
+                                     s=xsched, proto=XL_EVAL)
+        check_launches(f"eval DiT-XL/2 {name}", launches, art, xsteps)
+        add(launches)
+        score = qeval.score(gen, xcfg, device="cuda")
+        by_group = qeval.noise_mse_by_group(xparams, xcfg, xdif, ctx, n=40,
+                                            device="cuda")
+        eval_row(f"DiT-XL/2 {name} on {CARD[0]}", gen, score,
+                 float(np.mean(by_group)), secs, xsteps)
+        log(f"eval DiT-XL/2 {name}: noise MSE by group "
+            + ", ".join(f"{v:.6g}" for v in by_group)
+            + " (perturbed initialised weights: the scores run the path, "
+            "they say nothing of quality)")
+    del XL["params"]
+    torch.cuda.empty_cache()
+    log(f"eval: phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the public kernel API through its entry points
 # ---------------------------------------------------------------------------
 def phase_entry_points():
     """``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
@@ -1923,7 +2105,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"card: {smi.stdout.strip()}")
+    CARD[0] = smi.stdout.strip()
+    log(f"card: {CARD[0]}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     flash_ptxas()
     composed_ptxas()
@@ -1949,12 +2132,12 @@ def main() -> int:
     phase_composed_device(rows)
     drifts, setup, fp = phase_trained()
     ho = phase_trained_ho(setup, fp, drifts)
-    del setup, fp
+    del fp
     launches = phase_serve()
-    for name, n in phase_cold_start().items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in phase_entry_points().items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in (phase_cold_start, lambda: phase_eval(setup),
+                  phase_entry_points):
+        for name, n in phase().items():
+            launches[name] = launches.get(name, 0) + n
 
     flash = ("src/repro_torch/csrc/flash_attn_mrq.cu",
              "src/repro/kernels/flash_attn_mrq.py:292")

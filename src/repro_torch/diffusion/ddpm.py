@@ -1,9 +1,11 @@
 """DDPM substrate — port of ``repro/diffusion/ddpm.py``: schedules, the
-forward process, respacing, TGQ group lookup, the CFG-paired
-per-request-key sampler, the slot-wise chunked sampler of the
-continuous-batching engine (``make_slot_schedule``, ``ddpm_init_latent``,
-``ddpm_chunk_slots``), and the calibration-side Python-loop sampler and
-trajectory harvest (``ddpm_sample_python``, ``collect_xt_dataset``).
+forward process, respacing, TGQ group lookup, the research sampler of
+the quality tables (``ddpm_sample``), the CFG-paired per-request-key
+sampler, the slot-wise chunked sampler of the continuous-batching engine
+(``make_slot_schedule``, ``ddpm_init_latent``, ``ddpm_chunk_slots``), and
+the calibration-side Python-loop sampler and trajectory harvest
+(``ddpm_sample_python``, ``collect_xt_dataset``), which share the research
+sampler's loop (``ancestral_chain``).
 
 PyTorch runs eagerly, so the reference's ``lax.scan`` is a Python loop.
 In the sync sampler the timestep and its TGQ group are host ints; in the
@@ -114,19 +116,21 @@ def _f(v):
 
 def step_coefs(rs, idx: int):
     """The update coefficients of respaced index ``idx`` as f32 host
-    scalars ``(sqrt(1 - abar), 1 / sqrt(abar), c0, c1, sqrt(post_var))``:
-    ``x0 = (x - s1m * eps) * inv_sa``, ``mean = c0 * x0 + c1 * x``,
-    ``x = mean + sv * noise``. Both samplers take them from here, so both
-    round alike on every device: numpy's f32 sqrt is correctly rounded
-    (torch's CPU sqrt is not always), and x0 multiplies by the f32
-    reciprocal, which is what PyTorch's CUDA kernels compute for a
-    division by a host scalar (the reference divides)."""
+    scalars, formed in the reference's order: ``(sqrt(1 - abar),
+    1 / sqrt(abar), c0, c1, sqrt(post_var), sqrt(abar))``, with
+    ``mean = c0 * x0 + c1 * x`` and ``x = mean + sv * noise``. Every
+    sampler takes them from here, so all round alike on every device:
+    numpy's f32 sqrt is correctly rounded (torch's CPU sqrt is not
+    always). The serving samplers form ``x0 = (x - s1m * eps) * inv_sa``
+    (the f32 reciprocal is what PyTorch's CUDA kernels compute for a
+    division by a host scalar); the research and calibration samplers
+    divide by ``sqrt(abar)``, as the reference's do."""
     abar, abar_prev = _f(rs["abar"][idx]), _f(rs["abar_prev"][idx])
     beta, alpha = _f(rs["betas"][idx]), _f(rs["alphas"][idx])
     return (np.sqrt(_f(1) - abar), _f(1) / np.sqrt(abar),
             np.sqrt(abar_prev) * beta / (_f(1) - abar),
             np.sqrt(alpha) * (_f(1) - abar_prev) / (_f(1) - abar),
-            np.sqrt(_f(rs["post_var"][idx])))
+            np.sqrt(_f(rs["post_var"][idx])), np.sqrt(abar))
 
 
 def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
@@ -168,7 +172,7 @@ def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
         eps_c, eps_u = eps2[:B], eps2[B:]
         eps = eps_u + gsc * (eps_c - eps_u)
 
-        s1m, inv_sa, c0, c1, sv = map(float, step_coefs(rs, idx))
+        s1m, inv_sa, c0, c1, sv, _ = map(float, step_coefs(rs, idx))
         x0 = (x - s1m * eps) * inv_sa
         mean = c0 * x0 + c1 * x
         if idx > 0:
@@ -176,6 +180,74 @@ def ddpm_sample_paired(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
         else:
             x = mean
     return x
+
+
+# ---------------------------------------------------------------------------
+# the research sampler (quality evaluation)
+# ---------------------------------------------------------------------------
+def ancestral_chain(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
+                    draw: Callable, steps: int, ctx_of: Callable,
+                    clip_x0: Optional[float] = None, visit=None):
+    """The ancestral loop of the research and calibration samplers, one
+    forward a respaced step under ``ctx_of(g)`` for the step's TGQ group
+    g (a host int). ``draw()`` gives a normal of ``shape``: once for the
+    initial latent, then after each step's forward but the last (whose
+    noise is multiplied by 0). ``visit(x, t)`` sees each x_t before its
+    step. Everything runs on the draws' device; the coefficients are
+    host scalars, so nothing is copied between host and device."""
+    use_ts = respaced_timesteps(cfg.T, steps)
+    rs = respaced_schedule(sched, use_ts)
+    n = len(use_ts)
+    x = draw()
+    for i in range(n):
+        t_orig = int(use_ts[i])
+        idx = n - 1 - i
+        if visit is not None:
+            visit(x, t_orig)
+        tb = torch.full((shape[0],), t_orig, dtype=torch.int64,
+                        device=x.device)
+        g = tgroup_of(t_orig, cfg.T, cfg.tgq_groups)
+        eps = eps_fn(x, tb, y, ctx_of(g).with_tgroup(g)).float()
+        s1m, _, c0, c1, sv, sa = map(float, step_coefs(rs, idx))
+        x0 = (x - s1m * eps) / sa
+        if clip_x0 is not None:
+            x0 = torch.clamp(x0, -clip_x0, clip_x0)
+        mean = c0 * x0 + c1 * x
+        x = mean + sv * draw() if idx > 0 else mean
+    return x
+
+
+def key_draws(key, shape) -> Callable:
+    """The reference's key stream as a ``draw`` for :func:`ancestral_chain`:
+    each draw is ``key, k = split(key)``, then ``normal(k, shape)``. The
+    reference splits at the last step too, but never uses that key."""
+    state = [key]
+    shape = tuple(shape)
+
+    def draw():
+        state[0], k = rng.split(state[0])
+        return rng.normal(k, shape)
+    return draw
+
+
+def ddpm_sample(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y, key,
+                steps: Optional[int] = None, ctx=_FP,
+                clip_x0: Optional[float] = None, device=None):
+    """Ancestral DDPM sampling with respacing — the research sampler of
+    the quality tables (one forward a step, no CFG pairing, one key for
+    the whole batch).
+
+    eps_fn(x, t, y, ctx) -> predicted noise, ``t`` the original-chain
+    timestep; the context receives the TGQ group of t at every step.
+    ``key`` is a threefry key (``rng.PRNGKey``); it is moved to ``device``
+    (default ``"cuda"``; raises where CUDA is absent), where the chain
+    runs. Returns (B, H, W, C) float32 samples."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        return ancestral_chain(eps_fn, cfg, sched, shape,
+                               torch.as_tensor(y, device=dev),
+                               key_draws(key.to(dev), shape),
+                               steps or cfg.T, lambda g: ctx, clip_x0)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +278,7 @@ def make_slot_schedule(cfg: DiffusionCfg, sched, step_buckets, device=None):
     for k, (u, rs) in enumerate(zip(uts, rss)):
         use_ts[k, :len(u)] = u
         for idx in range(len(u)):
-            for f, c in zip(_SLOT_FIELDS, step_coefs(rs, idx)):
+            for f, c in zip(_SLOT_FIELDS, step_coefs(rs, idx)[:5]):
                 stk[f][k, idx] = c
     out = {"buckets": buckets, "n_of": torch.as_tensor(n_of, device=dev),
            "use_ts": torch.as_tensor(use_ts, device=dev)}
@@ -292,35 +364,12 @@ def ddpm_chunk_slots(eps_fn: Callable, cfg: DiffusionCfg, slot_sched, x,
 def _ancestral(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,
                generator: torch.Generator, steps: Optional[int], ctx,
                clip_x0: Optional[float], device, visit=None):
-    """The reference's Python-loop ancestral sampler, the draws from
-    ``generator``; ``visit(x, t)`` sees each x_t before its step."""
+    """The research sampler's loop with its draws from ``generator``."""
     dev = resolve_device(device)
-    steps = steps or cfg.T
-    use_ts = respaced_timesteps(cfg.T, steps)
-    rs = respaced_schedule(sched, use_ts)
-    n = len(use_ts)
-    x = torch.randn(shape, generator=generator, device=dev)
-    for i in range(n):
-        t_orig = int(use_ts[i])
-        idx = n - 1 - i
-        if visit is not None:
-            visit(x, t_orig)
-        tb = torch.full((shape[0],), t_orig, dtype=torch.int64, device=dev)
-        eps = eps_fn(x, tb, y, ctx.with_tgroup(
-            tgroup_of(t_orig, cfg.T, cfg.tgq_groups))).float()
-        abar, abar_prev = rs["abar"][idx], rs["abar_prev"][idx]
-        beta, alpha = rs["betas"][idx], rs["alphas"][idx]
-        x0 = (x - float(np.sqrt(1 - abar)) * eps) / float(np.sqrt(abar))
-        if clip_x0 is not None:
-            x0 = torch.clamp(x0, -clip_x0, clip_x0)
-        mean = (float(np.sqrt(abar_prev) * beta / (1 - abar)) * x0
-                + float(np.sqrt(alpha) * (1 - abar_prev) / (1 - abar)) * x)
-        if idx > 0:
-            x = mean + float(np.sqrt(rs["post_var"][idx])) * torch.randn(
-                shape, generator=generator, device=dev)
-        else:
-            x = mean
-    return x
+    return ancestral_chain(
+        eps_fn, cfg, sched, shape, y,
+        lambda: torch.randn(shape, generator=generator, device=dev),
+        steps or cfg.T, lambda g: ctx, clip_x0, visit)
 
 
 def ddpm_sample_python(eps_fn: Callable, cfg: DiffusionCfg, sched, shape, y,

@@ -2,12 +2,13 @@
 
 Reproduces ``jax.random`` under its default ``jax_threefry_partitionable
 = True`` so a request's noise is the reference's
-``normal(fold_in(PRNGKey(seed), i))`` bit for bit (the uint32 draws) and
-within a few ulps (the normals: ``erfinv`` is computed differently by
-torch and XLA). Keys are int64 tensors of shape (..., 2) holding uint32
-words; everything runs on whatever device the key lives on, and nothing
-copies between host and device once the key (and any counter tensor)
-is there.
+``normal(fold_in(PRNGKey(seed), i))`` bit for bit (the uint32 draws and
+``randint``) and closely (the normals: ``erfinv`` is computed differently
+by torch and XLA, most ulps apart near |u| = 0.94, where torch's CPU
+float32 erfinv is 833 ulps off the float64 value and XLA's 91). Keys
+are int64 tensors of shape (..., 2) holding uint32 words; everything
+runs on whatever device the key lives on, and nothing copies between
+host and device once the key (and any counter tensor) is there.
 """
 from __future__ import annotations
 
@@ -98,3 +99,30 @@ def normal(key, shape):
     (-1, 1) — ``jax.random.normal``'s construction."""
     u = uniform(key, shape, _LO, 1.0)
     return torch.erfinv(u) * _SQRT2
+
+
+def _mul32(a, b: int):
+    """``a * b`` modulo 2^32 for a tensor ``a`` and an int ``b``, both
+    uint32 values, without leaving int64's range."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def randint(key, shape, minval: int, maxval: int):
+    """int32 draws in [minval, maxval), ``jax.random.randint``'s
+    construction bit for bit: 32 high and 32 low bits from the two halves
+    of ``split(key)``, reduced modulo the span as
+    ``((hi % span) * (2^32 % span) + lo % span) % span`` in uint32
+    arithmetic (every product and sum wraps). ``maxval <= minval`` gives
+    ``minval``. Returns an int64 tensor of int32 values on the key's
+    device."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) leave int32")
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & _M32) % span
+    offset = ((_mul32(hi % span, mult) + lo % span) & _M32) % span
+    return offset + minval

@@ -187,6 +187,39 @@ TOLERANCES = {
                                         "against its plain version, and "
                                         "the glue around them is the same "
                                         "torch code"),
+    # the evaluation stack (quant/eval.py) vs the reference's
+    "eval_latents_atol": (5e-5, "the pipeline's noise is normal() * 0.3: "
+                          "torch's CPU float32 erfinv is up to 833 ulps "
+                          "off the float64 value near |u| = 0.94 and "
+                          "XLA's up to 91 (2^18 draws), so a normal moves "
+                          "by up to 7.5e-5 and a latent by 2.3e-5, plus "
+                          "one rounding in the pattern's add"),
+    "eval_sample_atol": (1e-4, "the research sampler in f32: the repo's "
+                         "sampler bound (tests/test_diffusion.py); XLA "
+                         "contracts the update into FMAs and the normals "
+                         "differ as eval_latents_atol says"),
+    "eval_sample_fake_quant_rel": (3e-5, "a whole fake-quant chain, "
+                                   "relative L2 over the sample set: "
+                                   "measured 3.2e-7 on the tiny DiT (W8A8 "
+                                   "range artifact, 8 samples x 4 steps), "
+                                   "where the fp chain lies 1.27e-3 from "
+                                   "the quantized one; the bound sits 90x "
+                                   "above the reading, room for codes "
+                                   "flipped by an ulp before a round, and "
+                                   "40x below the fp chain"),
+    "eval_noise_mse_rel": (1e-3, "per-group MSE of the quantized minus "
+                           "the fp forward on inputs that differ by "
+                           "eval_latents_atol; a flipped code moves one "
+                           "element by one quantization step"),
+    "eval_score_rel": (1e-3, "FD, sFD and IS* of samples within "
+                       "eval_sample_atol (and real latents within "
+                       "eval_latents_atol): the features move by about "
+                       "1e-5 relative and sqrtm carries it; rounded to "
+                       "3 decimals as the reference's score()"),
+    "eval_score_assets_rel": (1e-5, "one generated set scored against "
+                              "the port's and the reference's real "
+                              "latents (eval_latents_atol apart): "
+                              "float64 statistics, measured 4e-9"),
 }
 
 

@@ -184,3 +184,14 @@ def dit_apply(p, cfg: DiTCfg, x, t, y, *, ctx=_FP):
     out = ctx.linear("final", h, p["final"]["w"], p["final"]["b"],
                      norm_mod=(sh, sc))
     return unpatchify(out, cfg.patch, cfg.img_size, cfg.in_ch)
+
+
+def dit_apply_cfg_guidance(p, cfg: DiTCfg, x, t, y, scale, *, ctx=_FP):
+    """Classifier-free guidance: eps = eps_u + s * (eps_c - eps_u), from
+    one 2B forward (the conditional half on the null class
+    ``cfg.n_classes``'s)."""
+    null = torch.full_like(y, cfg.n_classes)
+    eps = dit_apply(p, cfg, torch.cat([x, x]), torch.cat([t, t]),
+                    torch.cat([y, null]), ctx=ctx)
+    eps_c, eps_u = torch.chunk(eps, 2)
+    return eps_u + scale * (eps_c - eps_u)

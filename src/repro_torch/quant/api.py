@@ -108,11 +108,11 @@ def quantize(params, model_cfg, dif_cfg, recipe: QuantRecipe,
         weights = report.pop("weights")     # full fp copy — never persisted
         calib_stats = {k: v for k, v in report.items()
                        if isinstance(v, (int, float, str))}
-        qparams = _to_device(qparams, "cpu")  # beside the captured weights
+        qparams = to_device(qparams, "cpu")  # beside the captured weights
     CALIBRATIONS += 1
 
     from repro_torch.kernels.ops import convert_for_kernels
-    qparams = _to_device(convert_for_kernels(qparams, weights), dev)
+    qparams = to_device(convert_for_kernels(qparams, weights), dev)
     meta = {
         "format_version": ARTIFACT_VERSION,
         "model": {"class": type(model_cfg).__name__,
@@ -129,14 +129,16 @@ def quantize(params, model_cfg, dif_cfg, recipe: QuantRecipe,
     return QuantArtifact(qparams=qparams, recipe=recipe, meta=meta)
 
 
-def _to_device(tree, dev):
+def to_device(tree, dev):
+    """A qparams tree (dicts, quantizer dataclasses, tensors) with every
+    tensor moved to ``dev``."""
     import torch
     if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
+        return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: _to_device(getattr(tree, f.name), dev)
+            f.name: to_device(getattr(tree, f.name), dev)
             for f in dataclasses.fields(tree)})
     return tree
