@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's W8A8, W6A6 and W4A4 serving paths, sync
 and continuous-batching, flash and composed attention, its HO calibration
-with a saved artifact cold-started in a fresh process, its evaluation
+with a saved artifact cold-started in a fresh process, its recipe
+auto-search with the throughput measured on the card, its evaluation
 path (the research sampler, FD / sFD / IS*, noise MSE) and its public
 kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
 
@@ -152,6 +153,20 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              the kernels equal to the plain versions, 32 samples x 20
              steps (ms/step and samples/s beside the card), scores against
              XL-shaped assets, noise MSE by group.
+4c. autotune — ``repro_torch.autotune`` on the trained checkpoint (w8a8,
+             w6a6, w4a4, flash, a mixed trial at a mean of 6 bits, the
+             default ``EvalConfig``): killed after one trial, resumed,
+             whose run measures DiT-XL/2's int8 and int4 serving paths (1
+             request x 100 CFG-paired steps through the sync engine and
+             phase 4's range artifacts, one warm-up and 3 timed runs:
+             zero fallback ops, launch counts = packed x forwards), then
+             replayed as a pure cache hit with byte-identical outputs, and
+             ``python -m repro_torch.launch.autotune --assert-resumed`` in
+             a fresh process (nothing recomputed or measured, the frontier
+             reproduced). Prints each path's median seconds per step and
+             spread beside the card, each trial (status, req/s, FD, noise
+             MSE by group), the frontier (label, req/s, FD) and the
+             fastest path.
 6. entry points — the public kernel API at the DiT-XL/2 shapes:
              ``repro_torch.kernels.int8_matmul``, ``ops.softmax_mrq_op``,
              ``ops.act_mrq_op`` (GELU and SiLU) and
@@ -1346,7 +1361,7 @@ def flash_forward_kernels(bits, cfg, params, ctx):
 
 
 TIMES = {}     # (width, attn_impl, serve) -> (ms/step, req/s), this run
-XL = {}        # phase 5b's DiT-XL/2 cfg, params and two artifacts
+XL = {}        # phases 4c and 5b's DiT-XL/2 cfg, params and artifacts
 CARD = [""]    # the card's name and power limit (nvidia-smi)
 RANGE_CALIB_S = {}     # width -> full-width range calibration s, this run
 
@@ -1579,8 +1594,9 @@ def phase_serve():
         add(launches)
         if bits == "w8a8":
             add(ladder_check(bits, cfg, params, art, composed_ref))
-        if bits == "w4a4":
-            XL["w4a4 range"] = art         # phase 5b samples through it
+        if bits in ("w8a8", "w4a4"):
+            # phase 4c measures through both, phase 5b samples W4A4's
+            XL[f"{bits} range"] = art
         del params, art
         torch.cuda.empty_cache()
     log("serve times in this run, flash beside composed (ms/step, req/s):")
@@ -1671,6 +1687,111 @@ def phase_cold_start():
             raise AssertionError("cold-start samples differ from the "
                                  "in-memory artifact's")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the recipe auto-search, its throughput measured on the card
+# ---------------------------------------------------------------------------
+def phase_autotune():
+    """A sweep of ``repro_torch.autotune`` on the trained checkpoint (bits
+    w8a8, w6a6, w4a4, flash, a mixed trial at a mean of 6 bits, the
+    default ``EvalConfig``): killed after one trial, resumed (which
+    measures DiT-XL/2's int8 and int4 paths through phase 4's range
+    artifacts: zero fallback ops, launches = packed ops x forwards),
+    replayed as a pure cache hit with byte-identical outputs, then
+    ``python -m repro_torch.launch.autotune --assert-resumed`` in a fresh
+    process on the same directory (nothing recomputed or measured, the
+    frontier reproduced). Prints each path's seconds per step and spread
+    beside the card, the frontier and the fastest path. Returns the
+    measurement's launches."""
+    import tempfile
+
+    from repro_torch import autotune
+    from repro_torch.launch.tables import BENCH_DIT, DIF
+    from repro_torch.models.dit import params_from_numpy
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "experiments", "dit_bench_450.pkl"),
+              "rb") as f:
+        params = params_from_numpy(pickle.load(f), device="cuda")
+    space = autotune.SearchSpace(bits=WIDTHS, bit_budgets=(6.0,))
+    ecfg = autotune.EvalConfig()
+    n = len(autotune.expand(space))
+    kw = dict(device="cuda", log=lambda m: log(f"  {m}"), measure_kw={
+        "params": XL["params"],
+        "artifacts": {"int8": XL["w8a8 range"], "int4": XL["w4a4 range"]}})
+    names = ("BENCH_autotune.json", "report.md", "ledger.jsonl")
+
+    def outputs(out):
+        return {k: open(os.path.join(out, k), "rb").read() for k in names}
+    with tempfile.TemporaryDirectory(prefix="_autotune_", dir=ROOT) as out:
+        killed = autotune.run_autotune(params, BENCH_DIT, DIF, space, ecfg,
+                                       out, max_new_stage1=1, **kw)
+        if not (killed.stopped_early and killed.recomputed == 1
+                and not killed.measured):
+            raise AssertionError(f"autotune kill: {killed}")
+        t0 = time.perf_counter()
+        full = autotune.run_autotune(params, BENCH_DIT, DIF, space, ecfg,
+                                     out, **kw)
+        full_s = time.perf_counter() - t0
+        if not (full.measured and full.stage1_hits == 1
+                and full.recomputed == n - 1 and len(full.records) == n):
+            raise AssertionError(f"autotune resume after the kill: {full}")
+        done = outputs(out)
+        resumed = autotune.run_autotune(params, BENCH_DIT, DIF, space,
+                                        ecfg, out, **kw)
+        if (resumed.recomputed or resumed.cache_hits != n
+                or resumed.measured or resumed.frontier != full.frontier
+                or resumed.records != full.records
+                or outputs(out) != done):
+            raise AssertionError(f"autotune replay was no pure cache hit: "
+                                 f"{resumed}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.autotune", "--arch",
+             "bench", "--out", out, "--budgets", "6", "--assert-resumed"],
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in r.stdout.splitlines():
+            log(f"  fresh process: {line}")
+        if (r.returncode != 0 or "resume asserts passed" not in r.stdout
+                or outputs(out) != done):
+            raise AssertionError(f"autotune --assert-resumed exited "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+    row = full.throughput
+    log(f"autotune: {n} trials, kill + resume {full_s:.1f} s (measurement "
+        f"{row['wall_s']:.1f} s), fresh-process --assert-resumed "
+        f"{wall:.1f} s: nothing recomputed or measured, frontier and "
+        f"outputs reproduced")
+    for path in sorted(row["step_s"]):
+        log(f"autotune: DiT-XL/2 {path} on {row['card']}: median "
+            f"{row['step_s'][path] * 1e3!r} ms/step, spread "
+            f"{row['spread_s'][path] * 1e3!r} ms over {row['runs']} runs of "
+            f"{ecfg.serve_b_local} request x {ecfg.serve_steps} CFG-paired "
+            f"steps: " + ", ".join(f"{t * 1e3:.3f}"
+                                   for t in row["runs_s"][path]))
+    for r in full.records:
+        m = r["metrics"]
+        log(f"autotune trial: {r['label']:<12} {r['status']:<6} {m['path']:<9}"
+            f" req/s {m['req_per_s']!r} FD {m.get('FD')} noise MSE "
+            f"{m['noise_mse']:.6g} by group " + ", ".join(
+                f"{v:.3g}" for v in m["noise_mse_by_group"])
+            + (f"; bits by group {r['allocation']}" if "allocation" in r
+               else ""))
+    for p in full.frontier:
+        log(f"autotune frontier: {p['label']:<12} {p['path']:<9} req/s "
+            f"{p['req_per_s']!r} ms/step {p['ms_per_step']!r} FD {p['FD']} "
+            f"sFD {p['sFD']} IS* {p['IS*']} noise MSE {p['noise_mse']:.6g}")
+    fastest = min(row["step_s"], key=row["step_s"].get)
+    log(f"autotune: the card's fastest path is {fastest}; the frontier's "
+        f"fastest point {full.frontier[0]['label']}; phase 4c took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    for launches in row["launches"].values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2134,8 +2255,8 @@ def main() -> int:
     ho = phase_trained_ho(setup, fp, drifts)
     del fp
     launches = phase_serve()
-    for phase in (phase_cold_start, lambda: phase_eval(setup),
-                  phase_entry_points):
+    for phase in (phase_cold_start, phase_autotune,
+                  lambda: phase_eval(setup), phase_entry_points):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
 

@@ -23,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.contexts import RecordingContext
 from repro.diffusion import DiffusionCfg as JDiffusionCfg
 from repro.models.dit import dit_apply as jdit_apply
 from repro.nn.ctx import FPContext as JFPContext
 from repro.quant import QuantRecipe as JQuantRecipe, quantize as jquantize
+from repro.serving import quickcal as jquickcal
 from repro_torch.checkpoint import ckpt
 from repro_torch.kernels.ref import TOLERANCES
 from repro_torch.models.dit import DiTCfg, dit_apply, params_from_numpy
@@ -35,6 +37,19 @@ from repro_torch.quant.artifact import QuantArtifact
 from repro_torch.quant.recipe import QuantRecipe
 
 REL = TOLERANCES["dit_forward_plain_vs_jax_rel"][0]
+
+
+class _PinnedRecordingContext(RecordingContext):
+    """The reference's recorder with its marked tensors kept alive, so a
+    freed post-GELU tensor's ``id`` cannot be reused by a later linear's
+    input and inherit the mark, whatever the process allocated before
+    (ROADMAP queue 3)."""
+
+    pinned: list = []            # shared by the per-layer context copies
+
+    def act(self, name, x, kind):
+        self.pinned.append(x)
+        return super().act(name, x, kind)
 
 
 @pytest.fixture(scope="module")
@@ -46,8 +61,10 @@ def both(tiny_dit, tmp_path_factory):
     tcfg = DiTCfg(**dataclasses.asdict(jcfg))
     tp = params_from_numpy(np_params, device="cpu")
     dif = JDiffusionCfg(T=1000, tgq_groups=4)
-    jart = jquantize(jp, jcfg, dif, JQuantRecipe(bits="w8a8", n_per_group=2,
-                                                 calib_batch=2))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquickcal, "RecordingContext", _PinnedRecordingContext)
+        jart = jquantize(jp, jcfg, dif, JQuantRecipe(
+            bits="w8a8", n_per_group=2, calib_batch=2))
     path = str(tmp_path_factory.mktemp("art") / "w8a8")
     jart.save(path)
     tart = QuantArtifact.load(path, device="cpu", params=tp)
