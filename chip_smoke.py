@@ -3,8 +3,10 @@
 and continuous-batching, flash and composed attention, its HO calibration
 with a saved artifact cold-started in a fresh process, its recipe
 auto-search with the throughput measured on the card, its evaluation
-path (the research sampler, FD / sFD / IS*, noise MSE) and its public
-kernel API (B11, B12, B13, flash's boolean mask), on one NVIDIA GPU.
+path (the research sampler, FD / sFD / IS*, noise MSE), its public
+kernel API (B11, B12, B13, flash's boolean mask) and its training path
+(DiT-XL/2 at full width under remat; a float32 resume), on one NVIDIA
+GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -176,6 +178,20 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              versions'. Its counts join the serves' in the kernels line,
              so each of the 21 kernels shows the launches of the path
              that reaches it.
+7. train   — (a) DiT-XL/2 at full width (``configs/dit_xl_2.py::full``
+             with remat: bf16, the reference's keyed init from seed 0)
+             trains one warm-up and 3 timed steps of
+             ``launch.steps.make_dit_train_step`` (AdamW, f32 moments) at
+             batch 256 on ``LatentPipeline`` batches; prints each loss
+             (finite), ms/step, images/s, the peak memory
+             (``max_memory_allocated``) and the achieved TFLOP/s with the
+             count behind it, beside the card. (b) float32: the
+             reference's tiny recipe (``launch.autotune.train_tiny``, 200
+             steps) must lower its loss (its seconds printed); then
+             ``launch.train --smoke`` runs uninterrupted, and again cut at
+             its step-4 checkpoint and resumed: the two final checkpoints
+             must be equal bit for bit (``torch.use_deterministic_
+             algorithms``). No kernel of the port launches in this phase.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2036,6 +2052,150 @@ def phase_entry_points():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training — DiT-XL/2 at full width under remat; a float32 resume
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 256      # the reference's DIT_SHAPES["train_256"] batch
+TRAIN_TIMED = 3        # timed steps, after one warm-up
+BF16_PEAK = 989e12     # dense bf16 tensor-core peak, flop/s
+RESUME_ARGV = ["--arch", "dit-xl-2", "--smoke", "--steps", "12", "--batch",
+               "16", "--ckpt_every", "4", "--log_every", "4"]
+
+
+def dit_macs_per_image(cfg) -> int:
+    """Multiply-adds of one DiT forward for one image, from its shapes:
+    each block's qkv, proj, fc1, fc2 (N tokens), QK^T and P.V (N^2 d
+    each) and its adaLN row; the embeddings, x_proj, final_ada and final.
+    DiT-XL/2: 118.6 G (the DiT paper's XL/2 figure)."""
+    d, f, N, P = cfg.d_model, cfg.d_ff, cfg.n_tokens, cfg.patch_dim
+    block = N * (3 * d * d + d * d + 2 * d * f) + 2 * N * N * d + d * 6 * d
+    return (cfg.n_layers * block + N * P * d + 256 * d + d * d
+            + d * 2 * d + N * d * P)
+
+
+def phase_train():
+    """(a) DiT-XL/2 at full width (bf16, remat, seed-0 keyed init) trains
+    one warm-up and 3 timed steps of ``make_dit_train_step`` at batch 256
+    on ``LatentPipeline`` batches (the launcher's draws): each loss
+    finite; ms/step, images/s, peak memory and achieved TFLOP/s printed
+    beside the card. (b) float32: the reference's tiny recipe
+    (``launch.autotune.train_tiny``, 200 steps) must lower its loss; then
+    ``launch.train --smoke`` run uninterrupted and run, cut at its step-4
+    checkpoint (the later steps' checkpoints deleted, as a crash after
+    that save leaves them), resumed: the two final checkpoints equal bit
+    for bit, under ``torch.use_deterministic_algorithms``. Launches no
+    kernel of the port: the launch counts must not move."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import dit_xl_2
+    from repro_torch.data.synthetic import LatentPipeline
+    from repro_torch.diffusion import rng
+    from repro_torch.diffusion.ddpm import DiffusionCfg, make_schedule
+    from repro_torch.launch import autotune as tautotune
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.steps import make_dit_train_step
+    from repro_torch.models.dit import dit_init_from_key
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    XL.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+
+    # (a) full width
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(dit_xl_2.full(), remat=True)
+    key = rng.PRNGKey(0, device=dev)
+    t0 = time.perf_counter()
+    params = dit_init_from_key(key, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = adamw(cosine_schedule(1e-4, 5, 100), weight_decay=0.01)
+    state = opt.init(params)
+    step = make_dit_train_step(cfg, opt, make_schedule(DiffusionCfg(T=1000),
+                                                       device=dev))
+    pipe = LatentPipeline(cfg.img_size, cfg.in_ch, cfg.n_classes, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(1 + TRAIN_TIMED):
+        key, batch = tlaunch.batch_at(pipe, key, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"full-width training losses {losses}")
+    step_s = float(np.median(secs[1:]))
+    macs = dit_macs_per_image(cfg)
+    flops = 4 * 2 * macs * TRAIN_BATCH     # forward, remat, backward (2)
+    log(f"train: DiT-XL/2 full width ({n_params / 1e6:.1f} M params, "
+        f"{cfg.dtype}, remat, AdamW f32 moments), batch {TRAIN_BATCH}, "
+        f"keyed init {init_s:.2f} s; losses {', '.join(f'{l:.6f}' for l in losses)} "
+        f"(first the warm-up); {step_s * 1e3:.1f} ms/step (median of "
+        f"{TRAIN_TIMED}: {', '.join(f'{s * 1e3:.1f}' for s in secs[1:])}; "
+        f"warm-up {secs[0] * 1e3:.1f}), {TRAIN_BATCH / step_s:.1f} images/s, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB; {flops / step_s / 1e12:.1f} "
+        f"TFLOP/s achieved ({flops / BF16_PEAK / step_s * 100:.1f} % of the "
+        f"989 TFLOP/s bf16 peak): 4 forwards (forward, remat, backward x 2) "
+        f"x 2 flop x {macs / 1e9:.2f} G multiply-adds an image x "
+        f"{TRAIN_BATCH} = {flops / 1e12:.1f} TFLOP a step; card {CARD[0]}")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+
+    # (b) float32: the tiny recipe, then an interrupted and resumed run
+    t0 = time.perf_counter()
+    _, tiny = tautotune.train_tiny(tautotune.TINY_STEPS, dev)
+    torch.cuda.synchronize()
+    tiny_s = time.perf_counter() - t0
+    tiny = tiny.cpu().numpy()
+    first, last = tiny[:20].mean(), tiny[-20:].mean()
+    if not (np.isfinite(tiny).all() and last < first):
+        raise AssertionError(f"the tiny recipe's loss did not fall: "
+                             f"{first:.4f} -> {last:.4f}")
+    log(f"train: tiny recipe {tautotune.TINY_STEPS} steps in {tiny_s:.2f} s, "
+        f"loss {tiny[0]:.4f} -> {tiny[-1]:.4f} (mean of the first 20 "
+        f"{first:.4f}, of the last 20 {last:.4f}); card {CARD[0]}")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    with tempfile.TemporaryDirectory(prefix="_train_", dir=ROOT) as tmp:
+        whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+        tlaunch.main(RESUME_ARGV + ["--ckpt_dir", whole])
+        tlaunch.main(RESUME_ARGV + ["--ckpt_dir", cut])
+        for s in (8, 12):
+            shutil.rmtree(os.path.join(cut, f"step_{s:08d}"))
+        if ckpt.latest_step(cut) != 4:
+            raise AssertionError("the cut run's latest step is not 4")
+        tlaunch.main(RESUME_ARGV + ["--ckpt_dir", cut])
+        a, b = ckpt.restore(whole, 12), ckpt.restore(cut, 12)
+        n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+        if len(a) != len(b) or n_diff:
+            raise AssertionError(f"resumed run differs from the "
+                                 f"uninterrupted one in {n_diff} values")
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"training launched port kernels: "
+                             f"{dict(kernels.LAUNCHES)}")
+    log(f"train: launch.train --smoke resumed at step 4 equals the "
+        f"uninterrupted run at step 12 bit for bit ({len(a)} leaves, "
+        f"deterministic algorithms); phase 7 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {}
+
+
 def entry_name(symbol):
     """A kernel's name from its mangled symbol, with its template arguments
     as mangled: ``_ZN<n><namespace><n>gemm_kernelILb0EEEv...`` ->
@@ -2256,7 +2416,8 @@ def main() -> int:
     del fp
     launches = phase_serve()
     for phase in (phase_cold_start, phase_autotune,
-                  lambda: phase_eval(setup), phase_entry_points):
+                  lambda: phase_eval(setup), phase_entry_points,
+                  phase_train):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
 

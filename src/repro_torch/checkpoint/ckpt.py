@@ -8,7 +8,8 @@ _COMMITTED}`` and ``<dir>/latest``. A step is written under
 ``step_XXXXXXXX.tmp`` and renamed once ``_COMMITTED`` is in it, so a
 crash leaves either the old step or the new one. The manifest's
 ``treedef`` is null: the reference's ``restore`` rebuilds a tree from the
-manifest's shapes and dtypes, and the port's returns the flat leaves.
+manifest's shapes and dtypes, and the port's returns the flat leaves
+(``unflatten(like, leaves)`` puts them back into a tree).
 """
 from __future__ import annotations
 
@@ -45,6 +46,28 @@ def flatten(tree: Any) -> List[Any]:
         return [l for f in ARRAY_FIELDS[type(tree)]
                 for l in flatten(getattr(tree, f))]
     return [tree]
+
+
+def unflatten(like: Any, leaves: List[Any]) -> Any:
+    """The inverse of ``flatten`` on a tree of dicts, lists and tuples:
+    ``like``'s structure holding ``leaves`` in ``jax.tree.flatten``
+    order (dict keys sorted; ``like``'s own key order kept)."""
+    n = len(flatten(like))
+    if n != len(leaves):
+        raise ValueError(f"leaf count mismatch: {len(leaves)} leaves for a "
+                         f"tree of {n}")
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(like)
 
 
 def to_numpy(leaf) -> np.ndarray:

@@ -1,5 +1,5 @@
 """DDPM substrate — port of ``repro/diffusion/ddpm.py``: schedules, the
-forward process, respacing, TGQ group lookup, the research sampler of
+forward process and the training loss (``ddpm_loss``), respacing, TGQ group lookup, the research sampler of
 the quality tables (``ddpm_sample``), the CFG-paired per-request-key
 sampler, the slot-wise chunked sampler of the continuous-batching engine
 (``make_slot_schedule``, ``ddpm_init_latent``, ``ddpm_chunk_slots``), and
@@ -72,6 +72,19 @@ def q_sample(sched, x0, t, noise):
     a = sched["sqrt_abar"].to(x0.device)[t].reshape(shape)
     b = sched["sqrt_1m_abar"].to(x0.device)[t].reshape(shape)
     return a * x0 + b * noise
+
+
+def ddpm_loss(eps_fn: Callable, sched, x0, t, y, key):
+    """E ||eps - eps_theta(x_t, t)||^2 (Eq. 11); the noise is
+    ``rng.normal(key, x0.shape)``, the reference's draw from ``key``."""
+    if x0.dtype != torch.float32:
+        raise ValueError(f"ddpm_loss draws float32 noise; x0 is {x0.dtype} "
+                         "(jax.random.normal draws other dtypes from other "
+                         "bits)")
+    noise = rng.normal(key, tuple(x0.shape))
+    xt = q_sample(sched, x0, t, noise)
+    pred = eps_fn(xt, t, y)
+    return torch.mean(torch.square(pred - noise))
 
 
 def respaced_timesteps(T: int, steps: int) -> np.ndarray:

@@ -79,15 +79,20 @@ def random_bits(key, shape):
 
 def uniform(key, shape, minval, maxval):
     """float32 uniform in [minval, maxval) from the top 23 bits, as
-    ``jax.random.uniform``."""
+    ``jax.random.uniform``. XLA fuses its ``floats * span + minval`` into
+    one FMA, rounded once: where ``span`` is a power of two (``normal``'s
+    2.0) the product is exact and the float32 add rounds once too;
+    otherwise the product and the sum are exact in float64 (under 50
+    significant bits), so one rounding to float32 gives the FMA's value."""
     bits = random_bits(key, shape)
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fb.view(torch.float32) - 1.0
-    # f32 bounds as host scalars (each op rounds in f32, as with 0-d f32
-    # tensors) so no value is copied to the device
+    # f32 bounds as host scalars so no value is copied to the device
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
-    return torch.clamp(floats * span + lo, min=lo)
+    if math.frexp(span)[0] == 0.5:
+        return torch.clamp(floats * span + lo, min=lo)
+    return torch.clamp((floats.double() * span + lo).float(), min=lo)
 
 
 _LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -126,3 +131,19 @@ def randint(key, shape, minval: int, maxval: int):
     mult = ((2 ** 16 % span) ** 2 & _M32) % span
     offset = ((_mul32(hi % span, mult) + lo % span) & _M32) % span
     return offset + minval
+
+
+def truncated_normal(key, lower: float, upper: float, shape):
+    """float32 normals truncated to (lower, upper), as
+    ``jax.random.truncated_normal``: u uniform between ``erf(lower/√2)``
+    and ``erf(upper/√2)`` (float32), ``√2 · erfinv(u)``, clipped to the
+    open interval."""
+    sqrt2 = torch.tensor(_SQRT2, dtype=torch.float32)
+    lo = torch.tensor(lower, dtype=torch.float32)
+    up = torch.tensor(upper, dtype=torch.float32)
+    a, b = torch.erf(lo / sqrt2), torch.erf(up / sqrt2)
+    u = uniform(key, shape, float(a), float(b))
+    inf = torch.tensor(float("inf"))
+    return torch.clamp(torch.erfinv(u) * _SQRT2,
+                       float(torch.nextafter(lo, inf)),
+                       float(torch.nextafter(up, -inf)))

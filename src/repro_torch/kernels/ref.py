@@ -216,6 +216,43 @@ TOLERANCES = {
                        "eval_latents_atol): the features move by about "
                        "1e-5 relative and sqrtm carries it; rounded to "
                        "3 decimals as the reference's score()"),
+    "normal_atol": (1e-4, "rng.normal against jax.random.normal from the "
+                    "same key on the CPU: the uniforms are equal bit for "
+                    "bit, but torch's float32 erfinv is up to 833 ulps off "
+                    "the float64 value near |u| = 0.94 and XLA's up to "
+                    "91, so a standard normal moves by up to 7.5e-5; an "
+                    "initialiser's normals by that times its stddev"),
+    # the training path (optim/, launch/steps.py, launch/train.py)
+    "train_optim_vs_jax_rtol": (2e-6, "optim/ against repro.optim on the "
+                                "same inputs, relative to a leaf's largest "
+                                "value: pow (the bias corrections, "
+                                "Adafactor's beta), cos (the schedule) and "
+                                "the reductions (global norm, Adafactor's "
+                                "means) round differently in torch and "
+                                "XLA; measured 3.1e-7 over 4 steps; a "
+                                "bfloat16 update may round one bf16 ulp "
+                                "apart"),
+    "train_loss_rel": (2e-6, "the f32 DiT loss of one batch (ddpm_loss, "
+                       "the train step's): the forward's matmuls, "
+                       "softmax and layernorm reduce in another order; "
+                       "measured 2.8e-7 on the tiny DiT"),
+    "train_grads_rel": (2e-5, "one step's gradients at the trained tiny "
+                        "DiT, the largest difference over a leaf's "
+                        "largest gradient: the backward's reductions "
+                        "(the stacked layers' sums, the embedding's "
+                        "scatter-add) in another order; measured 2.3e-6"),
+    "train_loss_traj_rel": (5e-6, "5 AdamW steps from the same init and "
+                            "batches: the losses track within the "
+                            "gradients' and the optimizer's roundings; "
+                            "measured 5.7e-7"),
+    "train_param_flip_rate": (1e-3, "parameters after a few AdamW steps: "
+                              "at step 1 m/sqrt(v) = g/|g|, so a gradient "
+                              "of rounding size whose sign differs moves "
+                              "its weight by 2 lr; the share of elements "
+                              "more than 1e-6 apart is counted against "
+                              "this budget (0 measured over the tiny "
+                              "recipe's 3 steps: adaLN-Zero keeps most "
+                              "early gradients at exactly 0)"),
     "eval_score_assets_rel": (1e-5, "one generated set scored against "
                               "the port's and the reference's real "
                               "latents (eval_latents_atol apart): "

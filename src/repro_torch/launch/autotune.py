@@ -27,9 +27,11 @@ Usage:
 
 ``--arch bench`` sweeps the trained 6-layer checkpoint
 ``experiments/dit_bench_450.pkl`` (``launch/tables.py::BENCH_DIT`` and
-``DIF``); ``--arch tiny`` the 2-layer ``experiments/dit_tiny_200.pkl``
-under the reference's tiny config. Neither is trained here: a missing
-checkpoint, or a ``--train-steps`` other than 200, exits with a message.
+``DIF``; a missing one exits with a message); ``--arch tiny`` a 2-layer
+DiT under the reference's tiny config, trained once with the reference's
+recipe for ``--train-steps`` steps and cached as ``dit_tiny_{N}.pkl``
+(a numpy pytree the reference loads) under ``REPRO_EXP_DIR`` or
+``experiments/``.
 ``--device cpu`` runs the plain versions on the CPU and measures the
 throughput at the smoke config (``configs/dit_xl_2.py::smoke``): a CPU
 time, not the card's.
@@ -55,23 +57,65 @@ def tiny_dit():
             DiffusionCfg(T=1000, tgq_groups=10))
 
 
+def train_tiny(train_steps: int, device):
+    """The reference's ``tiny_dit`` recipe: the keyed init from
+    ``PRNGKey(0)``, ``quant.eval.make_pipeline``'s latents, AdamW under
+    ``cosine_schedule(2e-3, 20, train_steps)`` without weight decay, batch
+    32, each step drawn from ``split(key, 4)``. Returns (params, the loss
+    of every step as a float32 tensor)."""
+    import time
+
+    import torch
+
+    from repro_torch.diffusion import rng
+    from repro_torch.diffusion.ddpm import make_schedule
+    from repro_torch.launch.steps import make_dit_train_step
+    from repro_torch.launch.train import batch_at
+    from repro_torch.models.dit import dit_init_from_key
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.quant import eval as qeval
+
+    cfg, dif = tiny_dit()
+    key = rng.PRNGKey(0, device=device)
+    params = dit_init_from_key(key, cfg, device=device)
+    opt = adamw(cosine_schedule(2e-3, 20, train_steps), weight_decay=0.0)
+    opt_state = opt.init(params)
+    step = make_dit_train_step(cfg, opt, make_schedule(dif, device=device))
+    pipe = qeval.make_pipeline(cfg)
+    losses = []
+    t0 = time.time()
+    for i in range(train_steps):
+        key, batch = batch_at(pipe, key, 32)     # t in [0, 1000 = dif.T)
+        loss, params, opt_state = step(params, opt_state, batch)
+        losses.append(loss)
+        if i % 100 == 0 or i == train_steps - 1:
+            print(f"  [tiny-train] step {i} loss {float(loss):.4f} "
+                  f"({time.time()-t0:.0f}s)", flush=True)
+    return params, torch.stack(losses)
+
+
 def load_model(arch: str, train_steps: int, device):
-    """(model cfg, DiffusionCfg, params on ``device``) of ``--arch``."""
+    """(model cfg, DiffusionCfg, params on ``device``) of ``--arch``; the
+    tiny DiT is trained and cached on first use."""
     from repro_torch.launch.tables import BENCH_DIT, DIF, ROOT
-    from repro_torch.models.dit import params_from_numpy
+    from repro_torch.models.dit import map_tree, params_from_numpy
     if arch == "bench":
-        model_cfg, dif_cfg, name = BENCH_DIT, DIF, "dit_bench_450.pkl"
+        path = os.path.join(ROOT, "experiments", "dit_bench_450.pkl")
+        if not os.path.exists(path):
+            raise SystemExit(f"{path} is missing: the port does not train "
+                             "the bench checkpoint")
+        model_cfg, dif_cfg = BENCH_DIT, DIF
     else:
-        if train_steps != TINY_STEPS:
-            raise SystemExit(
-                f"--train-steps {train_steps}: the port trains nothing; "
-                f"it loads experiments/dit_tiny_{TINY_STEPS}.pkl (training "
-                "is ROADMAP queue 1, item 6)")
-        (model_cfg, dif_cfg), name = tiny_dit(), f"dit_tiny_{TINY_STEPS}.pkl"
-    path = os.path.join(ROOT, "experiments", name)
-    if not os.path.exists(path):
-        raise SystemExit(f"{path} is missing: the port trains no "
-                         "checkpoint (ROADMAP queue 1, item 6)")
+        exp = os.environ.get("REPRO_EXP_DIR",
+                             os.path.join(ROOT, "experiments"))
+        path = os.path.join(exp, f"dit_tiny_{train_steps}.pkl")
+        model_cfg, dif_cfg = tiny_dit()
+        if not os.path.exists(path):
+            params, _ = train_tiny(train_steps, device)
+            os.makedirs(exp, exist_ok=True)
+            with open(path, "wb") as f:
+                pickle.dump(map_tree(lambda t: t.cpu().numpy(), params), f)
+            return model_cfg, dif_cfg, params
     with open(path, "rb") as f:
         params = params_from_numpy(pickle.load(f), device=device)
     return model_cfg, dif_cfg, params
@@ -93,8 +137,7 @@ def main(argv=None) -> None:
                     help="sweep directory (ledger + artifacts + report)")
     ap.add_argument("--arch", choices=("bench", "tiny"), default="bench")
     ap.add_argument("--train-steps", type=int, default=TINY_STEPS,
-                    help="tiny arch: the cached checkpoint's training "
-                         f"steps (only {TINY_STEPS} exists)")
+                    help="tiny arch: training steps for the cached model")
     ap.add_argument("--bits", default="w8a8,w6a6,w4a4")
     ap.add_argument("--methods", default="range")
     ap.add_argument("--groups", default="default",

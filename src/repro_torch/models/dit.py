@@ -13,10 +13,14 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.diffusion import rng
+from repro_torch.nn import initializers as init
 from repro_torch.nn.ctx import FPContext
-from repro_torch.nn.layers import embedding_apply, sincos_2d, timestep_embedding
+from repro_torch.nn.layers import (embedding_apply, embedding_init,
+                                   sincos_2d, timestep_embedding)
 
 _FP = FPContext()
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,9 +68,8 @@ class DiTCfg:
 def dit_init(seed: int, cfg: DiTCfg, device=None):
     """Initialised parameters drawn from a seeded ``torch.Generator``
     (normal(0.02) weights, zero biases; ``ada``, ``final_ada`` and
-    ``final`` zero-initialised as adaLN-Zero prescribes). Not bit-equal
-    to ``repro.models.dit.dit_init``: the tests hand both packages the
-    same numpy weights instead."""
+    ``final`` zero-initialised as adaLN-Zero prescribes). Not the
+    reference's draws: ``dit_init_from_key`` replays those."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     d, f, L, dt = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.tdtype
@@ -94,6 +97,54 @@ def dit_init(seed: int, cfg: DiTCfg, device=None):
         "final_ada": {"w": z(d, 2 * d), "b": z(2 * d)},
         "final": {"w": z(d, cfg.patch_dim), "b": z(cfg.patch_dim)},
     }
+
+
+def _block_init(key, cfg: DiTCfg):
+    ks = rng.split(key, 7)
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+    w = init.normal(0.02)
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=key.device)
+    return {
+        "qkv": {"w": w(ks[0], (d, 3 * d), dt), "b": z(3 * d)},
+        "proj": {"w": w(ks[1], (d, d), dt), "b": z(d)},
+        "fc1": {"w": w(ks[2], (d, f), dt), "b": z(f)},
+        "fc2": {"w": w(ks[3], (f, d), dt), "b": z(d)},
+        # adaLN-Zero: each residual branch starts as identity (DiT §3.2)
+        "ada": {"w": z(d, 6 * d), "b": z(6 * d)},
+    }
+
+
+def dit_init_from_key(key, cfg: DiTCfg, device=None):
+    """``repro.models.dit.dit_init(key, cfg)``'s parameters from the same
+    threefry key (``rng.PRNGKey(seed)``): ``split(key, 8)``, the layer
+    keys ``split(ks[0], n_layers)``, ``split(k, 7)`` in each block and
+    the blocks stacked on a leading axis, as ``jax.vmap`` stacks them.
+    Uniform draws and zeros equal the reference's bit for bit, normals
+    within ``rng.normal``'s few ulps."""
+    dev = resolve_device(device)
+    ks = rng.split(key.to(dev), 8)
+    d, dt = cfg.d_model, cfg.tdtype
+    w = init.normal(0.02)
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    blocks = [_block_init(k, cfg) for k in rng.split(ks[0], cfg.n_layers)]
+    grid = cfg.img_size // cfg.patch
+    return {
+        "x_proj": {"w": w(ks[1], (cfg.patch_dim, d), dt), "b": z(d)},
+        "pos": torch.from_numpy(sincos_2d(d, grid, grid)).to(dev, dt),
+        "t_mlp1": {"w": w(ks[2], (256, d), dt), "b": z(d)},
+        "t_mlp2": {"w": w(ks[3], (d, d), dt), "b": z(d)},
+        "y_embed": embedding_init(ks[4], cfg.n_classes + 1, d, dt),
+        "blocks": map_tree(torch.stack, _transpose(blocks)),
+        "final_ada": {"w": z(d, 2 * d), "b": z(2 * d)},
+        "final": {"w": z(d, cfg.patch_dim), "b": z(cfg.patch_dim)},
+    }
+
+
+def _transpose(trees):
+    """A list of same-shaped trees -> one tree of lists."""
+    if isinstance(trees[0], dict):
+        return {k: _transpose([t[k] for t in trees]) for k in trees[0]}
+    return trees
 
 
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -173,10 +224,20 @@ def dit_apply(p, cfg: DiTCfg, x, t, y, *, ctx=_FP):
     yemb = embedding_apply(p["y_embed"], y).to(dt)
     c = temb + yemb
 
+    # one view a layer (unbind: the backward stacks the layers' gradients
+    # once); with cfg.remat each block's activations are recomputed in the
+    # backward, as the reference's jax.checkpoint(body)
+    layers = map_tree(lambda a: a.unbind(0), p["blocks"])
     for i in range(cfg.n_layers):
-        bp = map_tree(lambda a: a[i], p["blocks"])
-        h = dit_block_apply(bp, cfg, h, c, ctx=ctx.at_layer(i),
-                            name=f"blk{i}")
+        bp = map_tree(lambda a: a[i], layers)
+        lctx, name = ctx.at_layer(i), f"blk{i}"
+        if cfg.remat:
+            h = checkpoint(lambda bp, h, c, lctx=lctx, name=name:
+                           dit_block_apply(bp, cfg, h, c, ctx=lctx,
+                                           name=name),
+                           bp, h, c, use_reentrant=False)
+        else:
+            h = dit_block_apply(bp, cfg, h, c, ctx=lctx, name=name)
 
     mod = ctx.linear("final_ada", F.silu(c), p["final_ada"]["w"],
                      p["final_ada"]["b"])

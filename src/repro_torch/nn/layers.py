@@ -4,6 +4,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.nn import initializers as init
+
+
+def embedding_init(key, vocab, d, dtype=torch.float32, stddev=0.02):
+    return {"emb": init.normal(stddev)(key, (vocab, d), dtype)}
+
 
 def embedding_apply(p, ids):
     return p["emb"][ids]

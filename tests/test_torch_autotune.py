@@ -18,7 +18,9 @@
    smoke config) and replayed by every resume; every frontier artifact
    loads in both packages.
 4. ``measure_step_s`` on the CPU, ``serve_n_dev`` other than 1, and the
-   launcher's ``main`` (kill, full run, ``--assert-resumed``).
+   launcher's ``main`` (kill, full run, ``--assert-resumed``; ``--arch
+   tiny --train-steps 3`` trains and caches a checkpoint the reference
+   loads).
 
 Every comparison is exact. The file runs on one torch and one BLAS
 thread (~10 s serial).
@@ -35,6 +37,7 @@ import pickle
 import random
 import shutil
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -43,6 +46,7 @@ from hypothesis import given, settings, strategies as st
 from benchmarks import serve_throughput as jst
 from repro import autotune as jat
 from repro.autotune import driver as jdriver
+from repro.launch import autotune as jlaunch
 from repro.diffusion import DiffusionCfg as JDiffusionCfg
 from repro.models import DiTCfg as JDiTCfg
 from repro.quant import QuantArtifact as JQuantArtifact
@@ -578,5 +582,27 @@ def test_launcher_kill_full_and_resume(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "resume asserts passed (3 cache hits, 0 recomputed)" in printed
     assert "replayed from the ledger" in printed
-    with pytest.raises(SystemExit, match="queue 1, item 6"):
-        launcher.main(argv + ["--train-steps", "100"])
+
+
+def test_launcher_trains_and_caches_the_tiny_dit(tmp_path, monkeypatch,
+                                                 capsys):
+    """``--arch tiny --train-steps 3`` trains the tiny DiT with the
+    reference's recipe and caches ``dit_tiny_3.pkl`` under
+    ``REPRO_EXP_DIR``, which the reference's ``tiny_dit`` loads; a second
+    run loads it and trains nothing."""
+    monkeypatch.setenv("REPRO_EXP_DIR", str(tmp_path / "exp"))
+    argv = ["--arch", "tiny", "--train-steps", "3", "--device", CPU,
+            "--out", str(tmp_path / "at"), "--max-new-stage1", "0"]
+    launcher.main(argv)
+    assert "[tiny-train] step 2 loss" in capsys.readouterr().out
+    path = tmp_path / "exp" / "dit_tiny_3.pkl"
+    with open(path, "rb") as f:
+        cached = pickle.load(f)
+    jcfg, _, jparams = jlaunch.tiny_dit(3, str(tmp_path / "exp"))
+    assert jcfg == JDiTCfg(**dataclasses.asdict(launcher.tiny_dit()[0]))
+    for a, b in zip(jax.tree.leaves(cached), jax.tree.leaves(jparams)):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    mtime = os.path.getmtime(path)
+    launcher.main(argv)
+    assert "[tiny-train]" not in capsys.readouterr().out
+    assert os.path.getmtime(path) == mtime
