@@ -4,9 +4,10 @@ and continuous-batching, flash and composed attention, its HO calibration
 with a saved artifact cold-started in a fresh process, its recipe
 auto-search with the throughput measured on the card, its evaluation
 path (the research sampler, FD / sFD / IS*, noise MSE), its public
-kernel API (B11, B12, B13, flash's boolean mask) and its training path
-(DiT-XL/2 at full width under remat; a float32 resume), on one NVIDIA
-GPU.
+kernel API (B11, B12, B13, flash's boolean mask), its training path
+(DiT-XL/2 at full width under remat; a float32 resume) and its dense LM
+family (Qwen3-1.7B at full width: the launcher, LM PTQ, kernel serving),
+on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -192,6 +193,42 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              its step-4 checkpoint and resumed: the two final checkpoints
              must be equal bit for bit (``torch.use_deterministic_
              algorithms``). No kernel of the port launches in this phase.
+8. lm      — the dense LM family at ``configs.get("qwen3-1.7b")``'s full
+             width (28 layers, d 2,048, 16 heads over 8 kv heads, hd 128,
+             vocab 151,936, bf16, ``lm_init(PRNGKey(0))``). B1 at every
+             linear shape (q/o, k/v, gate/up, down, the tied lm_head with
+             its weight a transposed view; M 4 and 4,096; bits 8 and 6;
+             f32 and bf16) and B3 at hd 128, G 2 (the causal mask over
+             1,024 tokens, a decode row over a 1,056-slot cache) against
+             their plain versions, bit for bit (their max errors join the
+             kernels line), then each in device time beside its bound.
+             ``python -m repro_torch.launch.serve --arch qwen3-1.7b`` at its
+             defaults in a fresh process (FP: 4 x 32 -> 16 tokens, in
+             range). LM PTQ as ``examples/lm_ptq.py`` runs it (tq_dit,
+             n_alpha 10, rounds 2, ``TokenPipeline`` batches 0-5 of 4 x
+             64) at W8A8 and W6A6: calibration seconds by phase (lm_head's
+             search apart), 197 ``int8`` packs and 28 attention pairs, CE
+             on batches 100-103 under FP, fake-quant and the kernel context
+             (launch counts set to 0 before, read after: 197 B1 and 28 B3
+             a forward), the kernel CE within
+             ``lm_kernel_vs_fake_quant_ce_rel`` of fake-quant; at W8A8 one
+             4 x 64 forward on the kernels equal to the plain versions,
+             then greedy ``lm_generate`` of 4 x 1,024 prompt tokens -> 32
+             under the kernel context: prefill ms, decode ms/token (two
+             ``lm_generate`` calls, of 32 new tokens and of 1,
+             differenced) and tokens/s from it, peak memory, the prefill
+             logits equal to the plain versions', one decode step's wall
+             time beside its device busy time (idle share, kernels a
+             step), launches 197 B1 and 28 B3 a forward. Then the logits
+             witness: the prefill logits under flash, the composed chain
+             and full precision against fake-quant (as calibrated, and on
+             the packs' weights, counting the weight codes the two clips
+             set apart) at 2, 8 and 28 layers, bf16 and float32; in
+             float32 the composed chain within
+             ``lm_composed_vs_fake_quant_f32_ratio`` x full precision's
+             distance at every depth. It runs right after phase 2's
+             device timing (late in a whole run the profiler drops most
+             kernel events).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2196,6 +2233,587 @@ def phase_train():
     return {}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the dense LM family — Qwen3-1.7B at full width
+# ---------------------------------------------------------------------------
+LM_ARCH = "qwen3-1.7b"
+# (op, K, N) of every linear of a qwen3-1.7b layer, and the tied lm_head
+LM_LINEARS = [("q/o", 2048, 2048), ("k/v", 2048, 1024),
+              ("gate/up", 2048, 6144), ("down", 6144, 2048),
+              ("lm_head", 2048, 151936)]
+LM_BITS = (8, 6)                      # W8A8, then W6A6
+LM_PROMPT, LM_NEW = 1024, 32          # kernel serving: 4 x 1024 -> 32
+
+
+def lm_linear_case(op, M, K, N, bits, dt, gen):
+    """B1 at one LM shape against its plain version on the same inputs,
+    bit for bit; the tied lm_head's weight codes are a transposed (N, K)
+    view, as ``emb.T`` packs them."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import int8_fused as F8
+    dev = torch.device("cuda")
+    half = 2 ** (bits - 1)
+    x = torch.randn(M, K, device=dev, generator=gen).to(dt)
+    if op == "lm_head":
+        wq = torch.randint(-(half - 1), half, (N, K), device=dev,
+                           generator=gen, dtype=torch.int8).T
+    else:
+        wq = torch.randint(-(half - 1), half, (K, N), device=dev,
+                           generator=gen, dtype=torch.int8)
+    sx = torch.full((1, 1), 8.0 / (2 * half - 1), device=dev)
+    zx = torch.round(4.0 / sx)
+    scale = sx * (torch.rand(1, N, device=dev, generator=gen) * 1e-3 + 1e-4)
+    corr = (torch.round(zx).to(torch.int32) - half) * wq.to(
+        torch.int32).sum(0, dtype=torch.int32)[None]
+    run = lambda: F8.int8_matmul_fq(x, wq, sx, zx, scale, corr, None, 0,
+                                    bits=bits, out_dtype=dt)
+    before = kernels.LAUNCHES["int8_matmul_fq"]
+    out = run()
+    if kernels.LAUNCHES["int8_matmul_fq"] != before + 1:
+        raise AssertionError(f"B1 {op} M={M}: not one launch")
+    with kernels.plain_on_cuda():
+        ref = run()
+    torch.cuda.synchronize()
+    what = (f"{op} {M}x{K}x{N} bits={bits} {str(dt)[6:]}"
+            + (" (weight a transposed view)" if op == "lm_head" else ""))
+    return check_plain("int8_matmul_fq", out, ref, "B1_vs_plain", what)
+
+
+def lm_attn_call(kind, bits, gen, dt):
+    """(run, what, bytes, int8 ops, fp32 ops) of one B3 call at the LM's
+    shapes through ``ops.flash_attention`` (hd 128, 8 kv heads, G 2,
+    B 4): the causal prefill over 1,024 tokens, or one decode row over a
+    1,056-slot cache whose last 15 slots are past the position (the
+    (1, 1, 1, 1, Skv) validity mask, a ragged last kv tile). The ops
+    count the scores the mask leaves live: S(S+1)/2 a row block at the
+    causal prefill."""
+    import torch
+
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    B, Hk, G, hd = 4, 8, 2, 128
+    half = 2 ** (bits - 1)
+    S = LM_PROMPT
+    Sq, Skv = (S, S) if kind == "prefill" else (1, S + LM_NEW)
+    q = (torch.randn(B, Sq, Hk, G, hd, device=dev, generator=gen) * 1.5
+         ).to(dt)
+    k, v = ((torch.randn(B, Skv, Hk, hd, device=dev, generator=gen) * 1.5
+             ).to(dt) for _ in "kv")
+    if kind == "prefill":
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev).tril()[
+            None, None, None]
+    else:
+        mask = (torch.arange(Skv, device=dev) <= S + 16)[None, None, None,
+                                                          None]
+    rate = torch.ones(1, 1, device=dev)
+    s_q = rate * (6.0 / (half - 1))
+    qk = {"s_q": s_q, "s_k": s_q * 1.05, "scale": s_q * s_q * 1.05,
+          "bits": bits, "groups": 1}
+    s1 = torch.clamp(8.0 * (1.0 / Skv) / half * rate,
+                     1.0 / (half * half * 8), 1.0 / half)
+    s_v = rate * (4.0 / (half - 1))
+    pv = {"s1": s1, "s_v": s_v, "scale1": s1 * s_v,
+          "scale2": s_v * (1.0 / half), "bits": bits, "groups": 1}
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, mask=mask,
+                                      scale=hd ** -0.5)
+    # the work the function needs: q, k, v and the mask read once, the
+    # output written once; the scores the mask leaves live, in every
+    # (batch, head, group) row (the kernel computes the masked tiles too)
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
+        + mask.numel()
+    scores = B * Hk * G * int(mask.sum())
+    what = (f"{kind} B={B} Sq={Sq} Skv={Skv} Hk={Hk} G={G} hd={hd} "
+            f"{str(dt)[6:]} bits={bits}")
+    return run, what, nbytes, 2 * 2 * scores * hd, \
+        SOFTMAX_FP32_PER_SCORE * scores
+
+
+def lm_kernel_cases(rows):
+    """B1 at every LM linear shape (M 4: decode and the last prompt row's
+    lm_head; M 4,096: a 4 x 1,024 prefill; bits 8 and 6; f32 and bf16) and
+    B3 at the LM's attention shapes (bits 8 and 6, f32 and bf16) against
+    their plain versions, bit for bit; their max errors join the kernels
+    line's B1 and B3 rows. Then, bf16 bits 8, each shape in device time
+    (the profiler over 20 calls) beside its wrapper time and bound."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import gemm_times
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    errs = {"int8_matmul_fq": [], "flash_attn_mrq": []}
+    for dt in (torch.bfloat16, torch.float32):
+        for bits in (8, 6):
+            for op, K, N in LM_LINEARS:
+                for M in (4, 4 * LM_PROMPT):
+                    errs["int8_matmul_fq"].append(lm_linear_case(
+                        op, M, K, N, bits, dt, gen))
+            for kind in ("prefill", "decode"):
+                run, what, *_ = lm_attn_call(kind, bits, gen, dt)
+                before = kernels.LAUNCHES["flash_attn_mrq"]
+                out = run()
+                if kernels.LAUNCHES["flash_attn_mrq"] != before + 1:
+                    raise AssertionError(f"B3 {what}: not one launch")
+                with kernels.plain_on_cuda():
+                    ref = run()
+                if not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"B3 {what}: non-finite output")
+                errs["flash_attn_mrq"].append(check_plain(
+                    "flash_attn_mrq", out, ref, "B3_mask_vs_plain", what))
+    for name, es in errs.items():
+        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] + es)
+    log(f"LM shapes, device time per call (bf16, bits 8; {CARD[0]}):")
+    shapes = [(op, M, K, N, "", False) for op, K, N in LM_LINEARS
+              for M in (4, 4 * LM_PROMPT)]
+    table = gemm_times.time_shapes(reps=20, shapes=shapes, log=log)
+    for kind in ("prefill", "decode"):
+        run, what, nbytes, i8, f32 = lm_attn_call(kind, 8, gen,
+                                                  torch.bfloat16)
+        per = gemm_times.device_ms(run, 20)
+        dev_ms = sum(per.values())
+        flash_ms = sum(v for k, v in per.items() if k.startswith("flash"))
+        b_ms, b_by = bound(nbytes, i8, f32)
+        w_ms = time_ms(run, 20)
+        log(f"  flash_attn_mrq {what}: device {dev_ms:.4f} ms (flash_kernel "
+            f"{flash_ms:.4f}, the mask's words {dev_ms - flash_ms:.4f} in "
+            f"{len(per) - 1} other kernels); wrapper {w_ms:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        table.append({"op": "attn_" + kind, "device_ms": dev_ms,
+                      "flash_ms": flash_ms, "wrapper_ms": w_ms,
+                      "bound_ms": b_ms})
+    lm_mask_cost()
+    return table
+
+
+def lm_mask_cost():
+    """The prefill's causal mask as flash's words: packed over every
+    (batch, head, group) row as ``ops.flash_attention`` did before (the
+    mask broadcast to (B·Hk·G, S, S), then ``mask_bits``), against once
+    per batch row and repeated (``head_mask_bits``, this tree's path):
+    wall ms a call (CUDA events) and the bytes of int32 lanes each makes."""
+    import torch
+    FA = importlib.import_module("repro_torch.kernels.flash_attn_mrq")
+    dev = torch.device("cuda")
+    B, Hk, G, S = 4, 8, 2, LM_PROMPT
+    pos = torch.arange(S, device=dev).expand(B, S)
+    m5 = (pos[:, None, :] <= pos[:, :, None])[:, None, None]
+    old = lambda: FA.mask_bits(torch.broadcast_to(m5, (B, Hk, G, S, S))
+                               .reshape(B * Hk * G, S, S), B * Hk * G, S,
+                               S, dev)
+    new = lambda: FA.head_mask_bits(m5, B, Hk, G, S, S, dev)
+    if not torch.equal(old(), new()):
+        raise AssertionError("head_mask_bits differs from mask_bits")
+    t_old, t_new = time_ms(old, 20), time_ms(new, 20)
+    log(f"lm: the causal mask's words for one prefill attention call (B "
+        f"{B}, Hk {Hk}, G {G}, S {S}): per head row {t_old:.4f} ms "
+        f"({B * Hk * G * S * S * 4 / 2 ** 20:.0f} MiB of int32 lanes), per "
+        f"batch row {t_new:.4f} ms ({B * S * S * 4 / 2 ** 20:.0f} MiB); "
+        f"x {28} layers a prefill: {28 * t_old:.2f} against "
+        f"{28 * t_new:.2f} ms; {CARD[0]}")
+
+
+def lm_ce(loss, batches, ctx):
+    import torch
+    with torch.no_grad():
+        return sum(float(loss(ctx, b)) for b, _ in batches) / len(batches)
+
+
+def lm_launcher():
+    """``python -m repro_torch.launch.serve --arch qwen3-1.7b`` at its
+    defaults (batch 4, prompt 32, 16 new tokens) in a fresh process: the
+    tokens in range; its seconds and ms/token."""
+    from repro_torch.configs import get
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", LM_ARCH], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"LM launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    gen_line = next(l for l in proc.stdout.splitlines()
+                    if l.startswith("generated "))
+    # numpy wraps the sample's 16 tokens over lines, as the reference's
+    toks = [int(t) for t in proc.stdout.split("sample:", 1)[1].split(
+        "[", 1)[1].split("]", 1)[0].split()]
+    vocab = get(LM_ARCH).vocab
+    if len(toks) != 16 or not all(0 <= t < vocab for t in toks):
+        raise AssertionError(f"LM launcher tokens out of range: {toks}")
+    log(f"lm: launcher (FP, bf16, 4 x 32 -> 16) {gen_line}; process "
+        f"{wall:.1f} s; tokens {toks}")
+    return wall
+
+
+def lm_ptq(params, cfg, bits, calib_b, eval_b, fp_ce):
+    """LM PTQ at one width, ``examples/lm_ptq.py``'s protocol: tq_dit
+    (n_alpha 10, rounds 2) on 6 calibration batches; CE on 4 held-out
+    batches under fake-quant and the kernel context; the packs counted,
+    the launches counted (every linear on B1, one B3 per layer per
+    forward). Returns (qparams, packed qparams, on the card, and the
+    kernel CE's launch counts)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import calib
+    from repro_torch.core.baselines import tq_dit
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.core.ptq import run_ptq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.quant.api import to_device
+    dev = torch.device("cuda")
+    loss = calib.lm_loss_fn(params, cfg)
+    t0 = time.perf_counter()
+    qp, rep = run_ptq(loss, calib_b, tq_dit(bits, bits, n_alpha=10,
+                                            rounds=2), device=dev)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    weights = rep.pop("weights")
+    t0 = time.perf_counter()
+    qp = to_device(qp, dev)
+    packed = {}
+    for name in list(qp):                  # one weight on the card at a time
+        w = weights.pop(name, None)
+        one = {name: torch.from_numpy(w).to(dev)} if w is not None else {}
+        packed.update(ops.convert_for_kernels({name: qp[name]}, one))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    del weights
+    n = lambda key: sum(key in p for p in packed.values())
+    counts = {k: n(k) for k in ("int8", "int8_mrq", "int8_qk", "int8_pv")}
+    L = cfg.n_layers
+    if counts != {"int8": 7 * L + 1, "int8_mrq": 0, "int8_qk": L,
+                  "int8_pv": L}:
+        raise AssertionError(f"W{bits}A{bits} packs {counts}")
+    head_s = rep["op_search_s"].get("lm_head", 0.0)
+    fq_ce = lm_ce(loss, eval_b, QuantContext(qparams=qp))
+    kctx = QuantContext(qparams=packed, kernel=True)
+    k_ce, launches, k_s = counted(lambda: lm_ce(loss, eval_b, kctx))
+    want = {k: 0 for k in launches}
+    want["int8_matmul_fq"] = (7 * L + 1) * len(eval_b)
+    want["flash_attn_mrq"] = L * len(eval_b)
+    if launches != want:
+        raise AssertionError(f"W{bits}A{bits} CE launches {launches} != "
+                             f"{want}")
+    tol = TOLERANCES["lm_kernel_vs_fake_quant_ce_rel"][0]
+    drift = abs(k_ce - fq_ce) / fq_ce
+    log(f"lm: W{bits}A{bits} tq_dit calibration {calib_s:.2f} s (capture "
+        f"{rep['capture_s']:.2f}, search {rep['search_s']:.2f}; lm_head's "
+        f"search {head_s:.2f} s; {rep['n_quantized']} ops), packing "
+        f"{pack_s:.2f} s; packs {counts}; CE fp {fp_ce:.5f}, fake-quant "
+        f"{fq_ce:.5f} ({fq_ce - fp_ce:+.5f}), kernels {k_ce:.5f} "
+        f"({k_ce - fp_ce:+.5f}; {k_s * 1e3 / len(eval_b):.1f} ms a "
+        f"4 x 64 forward); kernel vs fake-quant {drift:.3g} "
+        f"(lm_kernel_vs_fake_quant_ce_rel {tol}); {CARD[0]}")
+    if not (drift <= tol and finite(k_ce, fq_ce)):
+        raise AssertionError(f"W{bits}A{bits} kernel CE {k_ce} vs "
+                             f"fake-quant {fq_ce}")
+    return qp, packed, launches
+
+
+def finite(*xs):
+    import math
+    return all(math.isfinite(x) for x in xs)
+
+
+def lm_forward_vs_plain(params, cfg, packed, batch):
+    """One W8A8 4 x 64 forward on the kernels against the same forward on
+    the plain versions (every linear's B1, every attention call's B3 with
+    its causal mask): equal bit for bit."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.models import lm
+    ctx = QuantContext(qparams=packed, kernel=True)
+    with torch.no_grad():
+        out = lm.lm_apply(params, cfg, batch["tokens"], ctx=ctx)[0]
+        with kernels.plain_on_cuda():
+            ref = lm.lm_apply(params, cfg, batch["tokens"], ctx=ctx)[0]
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    tol = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
+    log(f"lm: W8A8 4 x 64 forward on the kernels vs the plain versions: "
+        f"rel L2 {rel} (registry dit_forward_kernel_vs_plain_rel {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"LM kernel forward vs plain: {rel}")
+
+
+def lm_prompts(cfg):
+    """The 4 ``TokenPipeline`` prompts of 1,024 tokens the serving runs
+    and the logits witness read, on the card."""
+    import torch
+
+    from repro_torch.data.synthetic import TokenPipeline
+    return TokenPipeline(cfg.vocab, seq_len=LM_PROMPT, batch=4,
+                         seed=7).batch_at(0, device=torch.device("cuda"))[
+                             "tokens"]
+
+
+def lm_serve(params, cfg, packed):
+    """Greedy ``lm_generate`` under W8A8's kernel context on
+    ``lm_prompts``, 32 new tokens: prefill ms, decode ms/token (two
+    ``lm_generate`` calls, of 32 new tokens and of 1, differenced over
+    the 31 steps between), tokens/s from it, the serve's peak memory,
+    launches (B1 on every linear, one B3 per layer per forward). The
+    prefill's logits on the kernels equal the plain versions' (bit for
+    bit). One decode step's wall time (CUDA events) beside its device
+    busy time (the profiler's kernel durations): the idle share, and the
+    kernels a step."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.models import lm
+    prompts = lm_prompts(cfg)
+    (B, S), n = prompts.shape, LM_NEW
+    kctx = QuantContext(qparams=packed, kernel=True)
+    prefill = lambda: lm.lm_prefill(params, cfg, prompts, ctx=kctx,
+                                    max_len=S + n)
+    generate = lambda k: lm.lm_generate(params, cfg, prompts, k, ctx=kctx,
+                                        max_len=S + n)
+    with torch.no_grad():
+        lm.lm_generate(params, cfg, prompts[:, :64], 2, ctx=kctx)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        with kernels.plain_on_cuda():
+            ref = prefill()[0]
+        r_plain = float((logits.float() - ref.float()).norm()
+                        / ref.float().norm())
+        del ref
+        exact = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
+        log(f"lm: W8A8 prefill logits (4 x {S}) on the kernels vs the plain "
+            f"versions: rel L2 {r_plain} (dit_forward_kernel_vs_plain_rel "
+            f"{exact})")
+        if not (torch.isfinite(logits.float()).all() and r_plain <= exact):
+            raise AssertionError(f"LM prefill logits: finite "
+                                 f"{bool(torch.isfinite(logits).all())}, "
+                                 f"vs plain {r_plain}")
+        tok = logits[:, -1].argmax(-1)[:, None]
+        step = lambda: lm.lm_decode_step(params, cfg, tok, cache, S,
+                                         ctx=kctx)
+        wall_ms = time_ms(step, 3, warmup=1)
+        busy_ms, n_kern = decode_busy(step, 7 * cfg.n_layers + 1,
+                                      cfg.n_layers)
+        del cache, logits
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        toks, launches, gen_s = counted(lambda: generate(n))
+        one_s = counted(lambda: generate(1))[2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, fw = cfg.n_layers, n + 1
+    want = {k: 0 for k in launches}
+    want["int8_matmul_fq"] = (7 * L + 1) * fw
+    want["flash_attn_mrq"] = L * fw
+    if launches != want:
+        raise AssertionError(f"LM generate launches {launches} != {want}")
+    if toks.shape != (B, n) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"LM generate tokens {toks.shape}")
+    dec_ms = (gen_s - one_s) * 1e3 / (n - 1)
+    log(f"lm: W8A8 kernel serving {B} x {S} -> {n} (greedy): prefill "
+        f"{prefill_ms:.1f} ms, lm_generate {gen_s * 1e3:.1f} ms ({n} new "
+        f"tokens) and {one_s * 1e3:.1f} ms (1), so decode {dec_ms:.2f} "
+        f"ms/token ({B * 1e3 / dec_ms:.1f} tokens/s decode, "
+        f"{B * (S + n) / gen_s:.0f} tokens/s end to end), peak memory "
+        f"{peak:.2f} GiB; a decode step alone: wall {wall_ms:.2f} ms (CUDA "
+        f"events over 3), "
+        + ("device busy not measured (the profiler dropped kernel events); "
+           if busy_ms is None else
+           f"device busy {busy_ms:.2f} ms (the profiler's kernel durations "
+           f"over 2; idle share {1 - busy_ms / wall_ms:.3f}), {n_kern:.1f} "
+           "kernels; ") +
+        f"launches {want['int8_matmul_fq']} B1, {want['flash_attn_mrq']} "
+        f"B3; {CARD[0]}")
+    return launches
+
+
+LM_WITNESS_DEPTHS = (2, 8, 28)
+
+
+def fake_quant_on_packs(qp, packed):
+    """The fake-quant context on the kernel packs' weights: each packed
+    linear's weight is replaced by its pack's codes times the channel
+    scales before fake-quant codes it again. Both packages clip a
+    weight's kernel codes to +-127 (``ops._weight_codes``) where
+    fake-quant clips to [-128, 127] (``symmetric_qdq``), so a clip that
+    the search set below a weight's magnitude codes it -127 on the kernels
+    and -128 under fake-quant; this context takes the kernels' codes.
+    Returns (context, counts: ``{"codes": weights coded, "differ": codes
+    fake-quant would have set otherwise}``, filled by a forward)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.contexts import QuantContext
+    counts = {"codes": 0, "differ": 0}
+
+    @dataclasses.dataclass
+    class OnPacks(QuantContext):
+        def linear(self, name, x, w, b=None, norm_mod=None,
+                   gate_residual=None):
+            pk = packed.get(name, {}).get("int8")
+            if pk is not None:
+                sw = qp[name]["w"].scale.reshape(1, -1).float()
+                half = 2 ** (pk["bits"] - 1)
+                own = torch.clamp(torch.round(w.float() / sw), -half,
+                                  half - 1)
+                counts["codes"] += own.numel()
+                counts["differ"] += int((own != pk["wq"]).sum())
+                w = pk["wq"].float() * sw
+            return QuantContext.linear(self, name, x, w, b, norm_mod,
+                                       gate_residual)
+    return OnPacks(qparams=qp), counts
+
+
+def lm_logits_witness(params, cfg, qp, packed):
+    """W8A8 prefill logits on ``lm_prompts`` (the last position) under the
+    kernel context (flash, and the composed attention chain) and under
+    full precision, each against the fake-quant context (relative L2), at
+    depths 2, 8 and 28 (the first layers of the same weights and packs),
+    in bf16 and in float32 (the same weights widened). Fake-quant runs on
+    the qparams as calibrated and on the packs' weights
+    (``fake_quant_on_packs``, which counts the weight codes the two
+    clips set apart). The composed chain's softmax is exact, as
+    fake-quant's; in float32, at every depth, its distance from
+    fake-quant on the packs' weights must stay within
+    ``lm_composed_vs_fake_quant_f32_ratio`` times full precision's, which
+    full precision fails by construction. Flash codes each 128-lane kv
+    tile against the running normalisation (the reference's contract),
+    so its distance is printed and it is held bit for bit against its
+    plain versions instead."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.models import lm
+    from repro_torch.nn.ctx import FPContext
+    from repro_torch.nn.tree import map_tree
+    prompts = lm_prompts(cfg)
+    ctxs = {"flash": QuantContext(qparams=packed, kernel=True),
+            "composed": QuantContext(qparams=packed, kernel=True,
+                                     attn_impl="composed"),
+            "fp": FPContext()}
+    on_packs, counts = fake_quant_on_packs(qp, packed)
+    refs = {"fake-quant": QuantContext(qparams=qp),
+            "fake-quant on the packs' weights": on_packs}
+    tol = TOLERANCES["lm_composed_vs_fake_quant_f32_ratio"][0]
+    t0 = time.perf_counter()
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        p = params if dt == "bfloat16" else map_tree(
+            lambda a: a.float() if a.is_floating_point() else a, params)
+        for d in LM_WITNESS_DEPTHS:
+            pd = dict(p, blocks=map_tree(lambda a: a[:d], p["blocks"]))
+            cd = dataclasses.replace(cfg, n_layers=d, dtype=dt)
+            run = lambda ctx: lm.lm_prefill(pd, cd, prompts, ctx=ctx)[
+                0].float()
+            with torch.no_grad():
+                got = {k: run(c) for k, c in ctxs.items()}
+                for rname, rctx in refs.items():
+                    ref = run(rctx)
+                    r = {k: float((g - ref).norm() / ref.norm())
+                         for k, g in got.items()}
+                    out[dt, d, rname] = r
+                    log(f"lm: W8A8 prefill logits (4 x {LM_PROMPT}) "
+                        f"against {rname}, relative L2, {dt}, {d} layers: "
+                        f"kernels (flash) {r['flash']:.6g}, composed chain "
+                        f"{r['composed']:.6g}, full precision "
+                        f"{r['fp']:.6g}")
+            del got, ref
+        del p
+    torch.cuda.empty_cache()
+    ratios = {d: out["float32", d, "fake-quant on the packs' weights"]
+              for d in LM_WITNESS_DEPTHS}
+    ratios = {d: r["composed"] / r["fp"] for d, r in ratios.items()}
+    log(f"lm: logits witness {time.perf_counter() - t0:.1f} s; weight codes "
+        f"the two clips set apart: {counts['differ']:,} of "
+        f"{counts['codes']:,} coded over the witness's forwards; float32 "
+        f"against fake-quant on the packs' weights, composed over full "
+        f"precision: " + ", ".join(f"{d} layers {v:.4g}"
+                                   for d, v in ratios.items())
+        + f" (lm_composed_vs_fake_quant_f32_ratio {tol}); {CARD[0]}")
+    if not max(ratios.values()) <= tol:
+        raise AssertionError(f"LM logits witness: float32 composed over "
+                             f"full precision {ratios}, bound {tol}")
+
+
+def decode_busy(step, gemms, flashes):
+    """(device busy ms, kernels) of one ``step`` from the profiler's
+    kernel durations over 2 steps, or (None, None) when three profiles
+    each lost some of the step's GEMM or flash events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if (sum("gemm_kernel" in e.name for e in ev) >= 2 * gemms
+                and sum("flash_kernel" in e.name for e in ev) >= 2 * flashes):
+            return sum(e.time_range.elapsed_us() for e in ev) / 2e3, \
+                len(ev) / 2
+    return None, None
+
+
+def merge_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def phase_lm(rows):
+    """Phase 8 (see the module docstring). Returns its launch counts."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    from repro_torch.core import calib
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.diffusion import rng
+    from repro_torch.models import lm
+    from repro_torch.nn.ctx import FPContext
+    t_phase = time.perf_counter()
+    lm_kernel_cases(rows)
+    lm_launcher()
+    dev = torch.device("cuda")
+    cfg = get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = lm.lm_init(rng.PRNGKey(0, device=dev), cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"lm: {LM_ARCH} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
+        f"{cfg.head_dim}, vocab {cfg.vocab}, bf16; {cfg.n_params():,} "
+        f"parameters) from lm_init(PRNGKey(0)) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pipe = TokenPipeline(cfg.vocab, seq_len=64, batch=4, seed=5)
+    calib_b = calib.build_lm_calibration(
+        [pipe.batch_at(i, device=dev)["tokens"] for i in range(6)])
+    eval_b = calib.build_lm_calibration(
+        [pipe.batch_at(100 + i, device=dev)["tokens"] for i in range(4)])
+    fp_ce = lm_ce(calib.lm_loss_fn(params, cfg), eval_b, FPContext())
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    for bits in LM_BITS:
+        qp, packed, n = lm_ptq(params, cfg, bits, calib_b, eval_b, fp_ce)
+        if bits == 8:
+            lm_forward_vs_plain(params, cfg, packed, eval_b[0][0])
+            n = merge_counts(n, lm_serve(params, cfg, packed))
+            lm_logits_witness(params, cfg, qp, packed)
+        launches = merge_counts(launches, n)
+        del qp, packed
+        torch.cuda.empty_cache()
+    log(f"lm: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in launches.items() if v}
+
+
 def entry_name(symbol):
     """A kernel's name from its mangled symbol, with its template arguments
     as mangled: ``_ZN<n><namespace><n>gemm_kernelILb0EEEv...`` ->
@@ -2411,13 +3029,16 @@ def main() -> int:
     phase_gemm_device(rows)
     phase_attn_device(rows)
     phase_composed_device(rows)
+    # phase 8 runs here, beside phase 2's device timing: late in a whole
+    # run the profiler has dropped most kernel events in every profile
+    lm_launches = phase_lm(rows)
     drifts, setup, fp = phase_trained()
     ho = phase_trained_ho(setup, fp, drifts)
     del fp
     launches = phase_serve()
     for phase in (phase_cold_start, phase_autotune,
                   lambda: phase_eval(setup), phase_entry_points,
-                  phase_train):
+                  phase_train, lambda: lm_launches):
         for name, n in phase().items():
             launches[name] = launches.get(name, 0) + n
 

@@ -1,0 +1,26 @@
+"""qwen2.5-3b [dense] — GQA (kv=2), QKV bias.
+36L d_model=2048 16H d_ff=11008 vocab=151936. [hf:Qwen/Qwen2.5; hf]
+"""
+from repro_torch.models.config import ModelCfg
+
+
+def full() -> ModelCfg:
+    return ModelCfg(
+        name="qwen2.5-3b", family="dense",
+        n_layers=36, d_model=2048, vocab=151936,
+        attn_type="gqa", n_heads=16, n_kv_heads=2, head_dim=128,
+        qkv_bias=True, rope_theta=1e6,
+        d_ff=11008, mlp_act="swiglu",
+        norm="rmsnorm", tie_embeddings=True, pos_embed="rope",
+        max_seq=32768, dtype="bfloat16",
+    )
+
+
+def smoke() -> ModelCfg:
+    return ModelCfg(
+        name="qwen2.5-3b-smoke", family="dense",
+        n_layers=2, d_model=64, vocab=256,
+        attn_type="gqa", n_heads=4, n_kv_heads=2, head_dim=16,
+        qkv_bias=True, d_ff=128, mlp_act="swiglu",
+        norm="rmsnorm", tie_embeddings=True, max_seq=1024,
+    )

@@ -1,6 +1,7 @@
 """Phase 1 of Algorithm 1 — calibration-set construction with time
-grouping (§III-A) — and the loss closure that drives calibration capture
-and the Fisher backward; port of the DiT part of ``repro/core/calib.py``.
+grouping (§III-A) — and the loss closures that drive calibration capture
+and the Fisher backward; port of ``repro/core/calib.py`` (the DiT's and
+the LM's).
 
 Default protocol: tuples (x_t, t, y) come from forward diffusion of
 source latents with a known noise target, timesteps drawn uniformly
@@ -89,4 +90,28 @@ def dit_loss_fn(params, dcfg: DiTCfg) -> Callable:
         eps = dit_apply(params, dcfg, batch["xt"], batch["t"], batch["y"],
                         ctx=ctx)
         return torch.mean(torch.square(eps.float() - batch["noise"]))
+    return loss
+
+
+def build_lm_calibration(token_batches: List[torch.Tensor]
+                         ) -> List[Tuple[Dict[str, Any], int]]:
+    """LM calibration: [(batch, 0)] — no diffusion timestep, so a single
+    TGQ group (the technique's time axis does not apply). Each batch is
+    {'tokens', 'labels'}: labels the next token, -1 past the end."""
+    out = []
+    for toks in token_batches:
+        labels = torch.cat([toks[:, 1:], torch.full(
+            (toks.shape[0], 1), -1, dtype=toks.dtype, device=toks.device)],
+            dim=1)
+        out.append(({"tokens": toks, "labels": labels}, 0))
+    return out
+
+
+def lm_loss_fn(params, cfg) -> Callable:
+    """Next-token CE (``models.lm.lm_loss_fn``) routing ops through
+    ``ctx``."""
+    from repro_torch.models.lm import lm_loss_fn as _lm_loss
+
+    def loss(ctx, batch):
+        return _lm_loss(params, cfg, batch, ctx=ctx)[0]
     return loss

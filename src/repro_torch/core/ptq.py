@@ -159,9 +159,11 @@ def _run_ptq(loss_fn, calib_batches, cfg: PTQConfig, dev):
     # ---- Phase 3: per-op candidate search ------------------------------------
     scfg = cfg.search_cfg()
     qparams: Dict[str, dict] = {}
+    op_s: Dict[str, float] = {}             # each op's search, wall seconds
     for name, info in registry.items():
         if _skip(name, cfg.skip_patterns) or name not in cal.store:
             continue
+        t_op = time.perf_counter()
         weight_only = _skip(name, cfg.weight_only_patterns)
         if info.kind == "linear":
             xs = [r["x"] for r in cal.store[name]]
@@ -179,13 +181,16 @@ def _run_ptq(loss_fn, calib_batches, cfg: PTQConfig, dev):
                 info, cal.store[name], fish[name], scfg,
                 w=cal.weights.get(name), weight_only=weight_only,
                 device=dev)
+        op_s[name] = time.perf_counter() - t_op
 
     # hook-quantized activations (MRQ-SiLU): plain-MSE grid over the stored
     # samples; the downstream projection's own HO search covers the joint
     # error
     for name in sorted(cal.act_store):
+        t_op = time.perf_counter()
         qparams[name] = {"act": search_hook_act(cal.act_store[name], scfg,
                                                 device=dev)}
+        op_s[name] = time.perf_counter() - t_op
 
     # ---- optional PTQD-like bias correction ----------------------------------
     if cfg.bias_correct:
@@ -217,6 +222,7 @@ def _run_ptq(loss_fn, calib_batches, cfg: PTQConfig, dev):
             if i.kind == "einsum" and n.endswith("/qk")
             and n in qparams and n[:-3] + "/pv" in qparams),
         "search_s": time.perf_counter() - t0 - t_capture,
+        "op_search_s": op_s,
         "calib_bytes": int(calib_bytes),
         "n_quantized": len(qparams),
         "n_batches": len(calib_batches),

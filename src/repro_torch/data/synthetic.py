@@ -1,5 +1,8 @@
-"""Seeded synthetic latents for DiT evaluation — port of the DiT part of
-``repro/data/synthetic.py``.
+"""Seeded synthetic data — port of ``repro/data/synthetic.py``: token
+streams for the LMs (``TokenPipeline``: order-2 Markov sources over a
+vocab head, pure numpy, so its batches equal the reference's bit for
+bit), latents for the DiT (``LatentPipeline``) and a host-side
+``prefetch``.
 
 Each class is a fixed smooth pattern (a low-frequency Fourier mix) plus
 scaled noise, so classes separate in feature space and the FD / IS*
@@ -12,7 +15,7 @@ labels bit for bit and its normals within a few ulps.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +23,61 @@ import torch
 from repro_torch.diffusion import rng
 
 
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class TokenPipeline:
+    vocab: int
+    seq_len: int
+    batch: int                      # per-host batch
+    seed: int = 0
+    host_id: int = 0
+    n_hosts: int = 1
+    order: int = 2
+
+    def __post_init__(self):
+        gen = np.random.default_rng(self.seed)
+        v = min(self.vocab, 512)     # transition table over a vocab head
+        self._v = v
+        # sparse-ish row-stochastic transition logits
+        self._trans = gen.normal(0, 1.5, (v, v)).astype(np.float32)
+
+    def batches(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+    def batch_at(self, step: int, device=None) -> dict:
+        """Deterministic batch for a global step (host-sharded): int32
+        ``tokens`` and ``labels`` (the next token, -1 past the end) on
+        ``device`` (default: where numpy made them, the CPU)."""
+        gen = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * self.n_hosts + self.host_id)
+        v = self._v
+        toks = np.empty((self.batch, self.seq_len), np.int64)
+        toks[:, 0] = gen.integers(0, v, self.batch)
+        logits = self._trans
+        for t in range(1, self.seq_len):
+            row = logits[toks[:, t - 1] % v]
+            row = row - row.max(axis=1, keepdims=True)
+            p = np.exp(row)
+            p /= p.sum(axis=1, keepdims=True)
+            cum = p.cumsum(axis=1)
+            u = gen.random((self.batch, 1))
+            toks[:, t] = (u < cum).argmax(axis=1)
+        toks = toks % self.vocab
+        labels = np.concatenate(
+            [toks[:, 1:], np.full((self.batch, 1), -1, np.int64)], axis=1)
+        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device),
+                "labels": torch.from_numpy(labels.astype(np.int32)
+                                           ).to(device)}
+
+
+# ---------------------------------------------------------------------------
+# DiT latent pipeline
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class LatentPipeline:
     img_size: int
@@ -67,3 +125,30 @@ class LatentPipeline:
         """The sample as numpy (labels int32, as the reference's)."""
         x, y = self.sample(n, key)
         return x.cpu().numpy(), y.cpu().numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# double-buffered prefetch
+# ---------------------------------------------------------------------------
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Host-side prefetch: keeps ``depth`` batches made ahead of the
+    consumer on a daemon thread."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = object()
+
+    def producer():
+        try:
+            for item in iterator:
+                q.put(item)
+        finally:
+            q.put(stop)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is stop:
+            return
+        yield item

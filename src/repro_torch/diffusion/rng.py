@@ -147,3 +147,20 @@ def truncated_normal(key, lower: float, upper: float, shape):
     return torch.clamp(torch.erfinv(u) * _SQRT2,
                        float(torch.nextafter(lo, inf)),
                        float(torch.nextafter(up, -inf)))
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key, shape):
+    """float32 standard Gumbel draws, ``jax.random.gumbel``'s default
+    ("low") construction: ``-log(-log(u))`` with u uniform in [tiny, 1)."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key, logits, axis: int = -1):
+    """``jax.random.categorical(key, logits, axis)`` (with replacement):
+    ``argmax(logits + gumbel(key, logits.shape))`` along ``axis``, in
+    float32 (bf16 logits are widened first). Returns int64 indices."""
+    lg = logits.float()
+    return torch.argmax(gumbel(key, tuple(lg.shape)) + lg, dim=axis)

@@ -153,15 +153,36 @@ def launch_strides(q5, k4, v4, out5):
             + pick(out5, (0, 2, 3, 1)))
 
 
+def _words(m, N: int):
+    """A boolean (..., N) as (..., ceil(N/128) * 4) int32 words, bit j of
+    word w = kv lane 32 w + j (1 = attend; 0 on the lanes past N)."""
+    Np = -128 * (-N // 128)
+    m = torch.nn.functional.pad(m.to(torch.int32), (0, Np - N))
+    bit = torch.arange(32, dtype=torch.int32, device=m.device)
+    return (m.reshape(tuple(m.shape[:-1]) + (Np // 32, 32)) << bit).sum(
+        -1, dtype=torch.int32)
+
+
 def mask_bits(mask, Bq: int, M: int, N: int, dev):
     """A boolean mask broadcastable to (Bq, M, N) as the kernel reads it:
     (Bq, M, ceil(N/128) * 4) int32 words, bit j of word w = kv lane
     32 w + j (1 = attend; 0 on the lanes past N)."""
-    Np = -128 * (-N // 128)
-    m = torch.broadcast_to(torch.as_tensor(mask, device=dev), (Bq, M, N))
-    m = torch.nn.functional.pad(m.to(torch.int32), (0, Np - N))
-    bit = torch.arange(32, dtype=torch.int32, device=dev)
-    return (m.reshape(Bq, M, Np // 32, 32) << bit).sum(-1, dtype=torch.int32)
+    return _words(torch.broadcast_to(torch.as_tensor(mask, device=dev),
+                                     (Bq, M, N)), N)
+
+
+def head_mask_bits(mask, B: int, Hk: int, G: int, M: int, N: int, dev):
+    """``mask_bits`` of a 5-D mask broadcastable to (B, Hk, G, M, N), the
+    head view's order: the words are packed over the mask's own extent (a
+    causal or decode mask does not vary over heads, so B·M·N lanes, not
+    B·Hk·G·M·N) and then repeated over the rows it broadcasts along, into
+    the (B·Hk·G, M, ceil(N/128) * 4) words the kernel reads."""
+    m = torch.as_tensor(mask, device=dev)
+    lead = tuple(m.shape[:4])
+    m = torch.broadcast_to(m, lead + (N,))
+    w = _words(m, N)
+    return w.expand(B, Hk, G, M, w.shape[-1]).reshape(
+        B * Hk * G, M, w.shape[-1]).contiguous()
 
 
 def _pair_ptr(dev, g_qk: int, g_pv: int) -> int:
@@ -238,10 +259,11 @@ def flash_attn_heads(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
     contiguous (the qkv projection's output as the DiT block views it).
     Scalar groups run B3/B3b, (B·Hk·G,) int32 vectors (one per slot-major
     q row) B8. ``scale`` multiplies ``qk_scale[g_qk]`` (in the kernel);
-    ``mask``: boolean broadcastable to (B·Hk·G, Sq, Skv) in that row order.
-    Returns (B, Sq, Hk, G, hd), contiguous on the kernel path. CUDA tensors
-    launch the kernel, CPU tensors take the plain version on the
-    flattened rows."""
+    ``mask``: boolean broadcastable to (B·Hk·G, Sq, Skv) in that row order,
+    or a 5-D one broadcastable to (B, Hk, G, Sq, Skv) (its words are packed
+    once per distinct row, ``head_mask_bits``). Returns (B, Sq, Hk, G, hd),
+    contiguous on the kernel path. CUDA tensors launch the kernel, CPU
+    tensors take the plain version on the flattened rows."""
     if packed_kv and bits != 4:
         raise ValueError("packed_kv streams nibbles: 4-bit codes only")
     B, Sq, Hk, G, hd = q.shape
@@ -252,6 +274,10 @@ def flash_attn_heads(q, k, v, s_q, s_k, qk_scale, s1, s_v, scale1, scale2,
                 scale)
         return out
     qf, kf, vf = flatten_heads(q, k, v)
+    if mask is not None and torch.as_tensor(mask).ndim == 5:
+        mask = torch.broadcast_to(torch.as_tensor(mask, device=q.device),
+                                  (B, Hk, G, Sq, k.shape[1])).reshape(
+            B * Hk * G, Sq, k.shape[1])
     args = (qf, kf, vf, s_q, s_k, qk_scale, s1, s_v, scale1, scale2, g_qk,
             g_pv, mask)
     kw = dict(bits=bits, packed_kv=packed_kv, out_dtype=out_dtype,
@@ -323,7 +349,12 @@ def _launch(q, k, v, out, params, groups, mask, bits, packed_kv, scale):
     else:
         pair = _pair_ptr(dev, g_qk, g_pv)
         gptrs = (pair, pair + 4)
-    words = None if mask is None else mask_bits(mask, Bq, M, N, dev)
+    if mask is None:
+        words = None
+    elif torch.as_tensor(mask).ndim == 5:
+        words = head_mask_bits(mask, B, Hk, G, M, N, dev)
+    else:
+        words = mask_bits(mask, Bq, M, N, dev)
     strides = (ctypes.c_long * 14)(*launch_strides(q, k, v, out))
     err = build.lib("flash_attn_mrq").flash_attn_mrq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), s_q.data_ptr(),

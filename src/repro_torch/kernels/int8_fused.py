@@ -176,14 +176,14 @@ def split_args(M: int, N: int, Kp: int, planes: int, dev, stream):
     return ks, ws.data_ptr()
 
 
-def _need(t, name, dtype, shape, dev):
+def _need(t, name, dtype, shape, dev, contiguous=True):
     if t.device != dev:
         raise ValueError(f"{name} on {t.device}, expected {dev}")
     if t.dtype not in dtype:
         raise ValueError(f"{name} dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -256,7 +256,9 @@ def _launch(mrq, x, wq, s_a, s_b, scale_a, scale_b, corr, bias, g, ps,
     M, K = x.shape
     N = wq.shape[1]
     dev = x.device
-    _need(wq, "wq", (torch.int8,), (K, N), dev)
+    # any strides: the kernel reads ``_transposed(wq)``, a K-major copy
+    # made once per weight (the tied lm_head's codes are emb.T's)
+    _need(wq, "wq", (torch.int8,), (K, N), dev, contiguous=False)
     sh, sc, gate, res, sh_rs, sc_rs, nm_bf16 = check_operands(
         x, (scale_a.shape[0], N), s_a, s_b, scale_a, scale_b, corr, bias, g,
         ps, nm, gr, bv, out_dtype)

@@ -500,6 +500,16 @@ def int4_linear_mrq(x, pack: dict, bias=None, out_dtype=None, tgroup=None,
                    _MRQ, {"group_k": pack["group_k"]})
 
 
+def _one_dtype(q, k, v):
+    """q, k and v in their promoted dtype: a bf16 operand beside an f32 one
+    is widened (exactly), as the reference's kernels read every operand in
+    f32. A quantized LM meets this: the act hook's f32 steps promote its
+    activations to f32 after layer 0's SwiGLU, so layer 0's bf16 q reads
+    an f32 decode cache."""
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in (q, k, v))
+
+
 def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
                    scale=1.0, tgroup=None, out_dtype=None):
     """int8 grouped SDPA as the composed three-kernel chain (B9a -> B10a
@@ -519,6 +529,7 @@ def int8_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     (B·Hk·G,) row vectors come from ``_groups`` (built once per forward);
     B10b reads its row's entry at ``row // Sq``."""
     out_dtype = out_dtype or q.dtype
+    q, k, v = _one_dtype(q, k, v)
     B, Sq, Hk, G, _ = q.shape
     Skv = k.shape[1]
     BHG = B * Hk * G
@@ -561,15 +572,20 @@ def flash_attention(q, k, v, qk_pack: dict, pv_pack: dict, *, mask=None,
     slot's group repeats over its Hk * G batch·head rows (slot-major).
     ``mask``: boolean, broadcastable to (B, Hk, G, Sq, Skv), True = attend;
     the kernel sets each masked lane to ``NEG_INF`` before the online
-    max."""
+    max. A mask that does not vary over heads (the LM's causal and decode
+    masks) has its bits packed once per (batch, q row)."""
     out_dtype = out_dtype or q.dtype
+    q, k, v = _one_dtype(q, k, v)
     B, Sq, Hk, G, hd = q.shape
     Skv = k.shape[1]
     BHG = B * Hk * G
     mf = None
     if mask is not None:
-        mf = torch.broadcast_to(torch.as_tensor(mask, device=q.device),
-                                (B, Hk, G, Sq, Skv)).reshape(BHG, Sq, Skv)
+        # kept 5-D: the kernel path packs its bits once per distinct
+        # (batch, q row), not once per head (``head_mask_bits``)
+        mf = torch.as_tensor(mask, device=q.device)
+        mf = mf.reshape((1,) * (5 - mf.ndim) + tuple(mf.shape))
+        torch.broadcast_shapes(mf.shape, (B, Hk, G, Sq, Skv))
     bits = int(qk_pack.get("bits", 8))
     g_qk = _groups(qk_pack, tgroup, BHG)
     g_pv = _groups(pv_pack, tgroup, BHG)

@@ -253,6 +253,82 @@ TOLERANCES = {
                               "this budget (0 measured over the tiny "
                               "recipe's 3 steps: adaLN-Zero keeps most "
                               "early gradients at exactly 0)"),
+    # the dense LM family (models/lm.py) vs the reference's, float32 CPU
+    "lm_forward_vs_jax_rel": (1e-5, "logits (and prefill + decode against "
+                              "the full forward, the cache, CE) over the "
+                              "largest |logit|: RoPE's angles reach 1e3 "
+                              "rad at theta 1e6 and torch's cos / sin and "
+                              "XLA's differ by ulps there, and the f32 "
+                              "matmuls, RMS / layer norms and softmax "
+                              "reduce in another order; measured 1.9e-7 "
+                              "to 2.6e-7 on the smoke configs"),
+    "lm_gumbel_rtol": (1e-5, "rng.gumbel against jax.random.gumbel from "
+                       "the same key: the uniforms are equal bit for bit, "
+                       "the two logs round by ulps in each library"),
+    "lm_kernel_plain_vs_jax_fq_rel": (2e-2, "a W8A8 LM forward through the "
+                                      "kernel context's plain versions "
+                                      "against JAX's fake-quant context on "
+                                      "the same qparams: the forwards' "
+                                      "ulps flip a few codes, each moving "
+                                      "an output by one step (as "
+                                      "dit_forward_plain_vs_jax_rel)"),
+    "lm_greedy_near_tie_rel": (1e-4, "greedy decode at random init: where "
+                               "the two packages' tokens first differ, "
+                               "the two candidates' logits must lie "
+                               "within this share of the largest |logit| "
+                               "(forward ulps, lm_forward_vs_jax_rel, "
+                               "decide the argmax only there)"),
+    "lm_kernel_vs_fake_quant_ce_rel": (1e-2, "the CE of a bf16 LM at full "
+                                       "width under the kernel context "
+                                       "against the fake-quant context on "
+                                       "the same packs: fake-quant rounds "
+                                       "each dequantised operand and each "
+                                       "product to bf16 where the kernels "
+                                       "sum exact integers and dequantise "
+                                       "in f32, and those roundings flip "
+                                       "codes downstream. At random init "
+                                       "the CE sits near ln(vocab) under "
+                                       "every context, full precision's "
+                                       "included, so this bound does not "
+                                       "tell a quantized context from an "
+                                       "unquantized one"),
+    "lm_composed_vs_fake_quant_f32_ratio": (0.4, "the last prefill "
+                                            "logits of a float32 LM at "
+                                            "full width under the kernel "
+                                            "context with the composed "
+                                            "attention chain (exact "
+                                            "softmax, as fake-quant's) "
+                                            "against fake-quant on the "
+                                            "packs' weights, relative L2, "
+                                            "over full precision's "
+                                            "distance, at 2, 8 and 28 "
+                                            "layers. Per op the two agree "
+                                            "to f32 ulps (8e-7 a linear, "
+                                            "4e-5 to 8e-5 an attention "
+                                            "call), but each ulp that "
+                                            "moves a value across a code "
+                                            "boundary moves it a whole "
+                                            "step, and at random init the "
+                                            "next quantizers carry that "
+                                            "on, so the distance grows "
+                                            "with depth towards "
+                                            "quantization's own: measured "
+                                            "0.13, 0.22 and 0.26 of full "
+                                            "precision's (H100); against "
+                                            "fake-quant as calibrated, "
+                                            "whose weights clip to "
+                                            "[-128, 127] where the packs "
+                                            "clip to +-127, 0.60 to 0.66. "
+                                            "In bf16 layer 0's linears "
+                                            "round to bf16 on the kernels "
+                                            "where fake-quant's are f32, "
+                                            "and flash codes each 128-lane "
+                                            "kv tile against the running "
+                                            "normalisation (the "
+                                            "reference's contract): "
+                                            "neither is held here, flash "
+                                            "is held exactly against its "
+                                            "plain versions"),
     "eval_score_assets_rel": (1e-5, "one generated set scored against "
                               "the port's and the reference's real "
                               "latents (eval_latents_atol apart): "

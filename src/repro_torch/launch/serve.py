@@ -28,8 +28,22 @@ per-row-group kernels B6a/B6b/B7a/B7b/B8 under a quantized context;
 engine's bit for bit, and a serve that took a rung of the degradation
 ladder exits non-zero.
 
+The dense LMs (``qwen3-1.7b``, ``qwen2.5-3b``, ``qwen2.5-14b``,
+``stablelm-3b``, ``chameleon-34b``) take the reference's batched-decode
+path: ``lm_init(PRNGKey(seed))``, ``--batch`` prompts of ``--prompt_len``
+tokens drawn with ``randint`` from the same key, greedy ``lm_generate`` of
+``--gen`` tokens in full precision; it prints the reference's two lines.
+LM PTQ runs through the API (``core.ptq.run_ptq``, then
+``kernels.ops.convert_for_kernels`` and ``QuantContext(kernel=True)``, as
+``examples/lm_ptq.py`` drives it), so an LM takes no ``--quantize``,
+``--save-artifact``, ``--load-artifact``, ``--dump-samples`` or
+``--async``. The other families exit naming their ROADMAP item.
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --batch 4 \\
+      --prompt_len 32 --gen 16
+
 ``--smoke`` uses the tiny config; ``--device cpu`` runs the plain
-versions on the CPU. ``--dp`` and the LM branch wait for later slices.
+versions on the CPU. ``--dp`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -78,8 +92,8 @@ def build(arch: str, smoke: bool, quantize: str, seed: int, requests: int,
     from repro_torch.serving.scheduler import RequestScheduler
 
     if arch != "dit-xl-2":
-        raise SystemExit(f"--arch {arch}: the port serves dit-xl-2 only "
-                         "(the LM zoo is ROADMAP queue 1, item 8)")
+        raise SystemExit(f"--arch {arch}: build() sets up the DiT serve; "
+                         "the dense LMs take main()'s LM branch")
     if save_artifact is not None and (quantize == "none"
                                       or load_artifact is not None):
         raise ValueError("save_artifact needs quantize and excludes "
@@ -170,10 +184,54 @@ def perturb_init(params, seed: int):
     return params
 
 
+def serve_lm(args) -> None:
+    """The reference launcher's LM branch: greedy generation in full
+    precision from the keyed init, timed on the device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.device import resolve_device
+    from repro_torch.diffusion import rng
+    from repro_torch.models.lm import lm_generate, lm_init
+
+    if args.save_artifact or args.load_artifact or args.dump_samples:
+        raise SystemExit(
+            f"--save-artifact/--load-artifact/--dump-samples are DiT-only "
+            f"({args.arch} takes the LM decode path, which has no artifact "
+            "support); drive LM PTQ via repro_torch.core.ptq.run_ptq")
+    if args.quantize != "none" or args.async_mode:
+        raise SystemExit(
+            f"--quantize/--async are DiT-only: {args.arch} is served in "
+            "full precision here; drive LM PTQ via repro_torch.core.ptq."
+            "run_ptq and kernels.ops.convert_for_kernels")
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    dev = resolve_device(args.device)
+    key = rng.PRNGKey(args.seed, device=dev)
+    try:
+        params = lm_init(key, cfg, device=dev)
+    except NotImplementedError as e:      # a family the port waits on
+        raise SystemExit(f"--arch {args.arch}: {e}") from None
+    prompts = rng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    toks = lm_generate(params, cfg, prompts, args.gen,
+                       max_len=args.prompt_len + args.gen)
+    sync()
+    dt = time.perf_counter() - t0
+    print(f"generated {args.batch}x{args.gen} tokens in {dt:.2f}s "
+          f"({dt / args.gen * 1000:.0f} ms/token batched)")
+    print("sample:", np.asarray(toks[0].cpu())[:16])
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4, help="LM decode batch")
+    ap.add_argument("--prompt_len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--microbatch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=25)
@@ -220,6 +278,10 @@ def main(argv=None) -> None:
         ap.error("--save-artifact requires --quantize (and excludes "
                  "--load-artifact): there is no freshly calibrated "
                  "artifact to save otherwise")
+
+    if args.arch != "dit-xl-2":
+        serve_lm(args)
+        return
 
     import numpy as np
 

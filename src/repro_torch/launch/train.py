@@ -80,11 +80,11 @@ def main(argv=None) -> None:
 
     if args.arch != "dit-xl-2":
         raise SystemExit(f"--arch {args.arch}: the port trains dit-xl-2 "
-                         "only (the LM zoo is ROADMAP queue 1, item 8)")
+                         "only (LM training is ROADMAP queue 1, item 8(e))")
     if args.grad_accum != 1:
         raise SystemExit("--grad_accum: the DiT branch takes none; "
                          "accumulation is the LM branch's (ROADMAP queue "
-                         "1, item 8)")
+                         "1, item 8(e))")
     if args.data_mesh != 1 or args.model_mesh != 1:
         raise SystemExit("--data_mesh / --model_mesh: one device only "
                          "(multi-GPU is ROADMAP queue 1, item 9)")

@@ -8,9 +8,6 @@ op context, so the same forward serves fp, fake-quant and the kernels.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -21,6 +18,9 @@ from repro_torch.nn import initializers as init
 from repro_torch.nn.ctx import FPContext
 from repro_torch.nn.layers import (embedding_apply, embedding_init,
                                    sincos_2d, timestep_embedding)
+from repro_torch.nn.tree import (  # noqa: F401  (re-exported)
+    map_tree, params_from_numpy, stack_trees,
+)
 
 _FP = FPContext()
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -134,33 +134,10 @@ def dit_init_from_key(key, cfg: DiTCfg, device=None):
         "t_mlp1": {"w": w(ks[2], (256, d), dt), "b": z(d)},
         "t_mlp2": {"w": w(ks[3], (d, d), dt), "b": z(d)},
         "y_embed": embedding_init(ks[4], cfg.n_classes + 1, d, dt),
-        "blocks": map_tree(torch.stack, _transpose(blocks)),
+        "blocks": stack_trees(blocks),
         "final_ada": {"w": z(d, 2 * d), "b": z(2 * d)},
         "final": {"w": z(d, cfg.patch_dim), "b": z(cfg.patch_dim)},
     }
-
-
-def _transpose(trees):
-    """A list of same-shaped trees -> one tree of lists."""
-    if isinstance(trees[0], dict):
-        return {k: _transpose([t[k] for t in trees]) for k in trees[0]}
-    return trees
-
-
-def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
-    """A nested dict of numpy arrays (e.g. ``experiments/*.pkl``) -> the
-    same tree of tensors on ``device``."""
-    dev = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
-    t = torch.from_numpy(np.ascontiguousarray(tree)).to(dev)
-    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
-
-
-def map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # ---------------------------------------------------------------------------

@@ -1601,3 +1601,73 @@ def test_forward_launches_no_torch_layernorm_stats(dev, bits):
     assert torch.isfinite(out.float()).all()
     assert any("prologue_rows_kernel" in n for n in names), names
     assert not [n for n in names if "MeanOps" in n or "pow_" in n], names
+
+
+# ---------------------------------------------------------------------------
+# the dense LM's shapes: B1 at M = 4 and the tied lm_head, B3 under GQA
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 6])
+@pytest.mark.parametrize("K,N,transposed", [(2048, 2048, False),
+                                            (6144, 2048, False),
+                                            (2048, 151936, True)],
+                         ids=["q", "down", "lm_head"])
+def test_lm_linear_m4_and_strided_head_match_plain(dev, K, N, transposed,
+                                                   bits, dt):
+    """B1 at a decode step's M = 4 rows, one launch, bit for bit its
+    plain version; the tied lm_head's weight codes are the transposed
+    view of an (N, K) tensor (``emb.T``), not a contiguous copy."""
+    g = torch.Generator(device=dev).manual_seed(K + N + bits)
+    half = 2 ** (bits - 1)
+    x = torch.randn(4, K, device=dev, generator=g).to(dt)
+    shape = (N, K) if transposed else (K, N)
+    wq = torch.randint(-(half - 1), half, shape, device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = wq.T if transposed else wq
+    assert wq.is_contiguous() != transposed
+    sx = torch.full((1, 1), 8.0 / (2 * half - 1), device=dev)
+    zx = torch.round(4.0 / sx)
+    scale = sx * (torch.rand(1, N, device=dev, generator=g) * 1e-3 + 1e-4)
+    corr = (torch.round(zx).to(torch.int32) - half) * wq.to(
+        torch.int32).sum(0, dtype=torch.int32)[None]
+    run = lambda: F8.int8_matmul_fq(x, wq, sx, zx, scale, corr, None, 0,
+                                    bits=bits, out_dtype=dt)
+    before = kernels.LAUNCHES["int8_matmul_fq"]
+    out = run()
+    assert kernels.LAUNCHES["int8_matmul_fq"] == before + 1
+    assert torch.equal(out, _plain(run))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["causal", "decode"])
+def test_lm_flash_gqa_masks_match_plain_and_expanded_heads(dev, kind, dt):
+    """B3 at head dim 128 with G = 2 query heads per kv head (kv heads
+    that differ), under the LM's causal (B, 1, 1, S, S) mask and a decode
+    row's (1, 1, 1, 1, Skv) validity mask over a ragged cache: one launch,
+    bit for bit its plain version, and bit for bit the same call with
+    each kv head materialised for its two query heads (G = 1), so query
+    head h reads kv head h // G."""
+    gen = torch.Generator(device=dev).manual_seed(128)
+    B, Hk, G, hd, S = 2, 4, 2, 128, 300
+    Sq = S if kind == "causal" else 1
+    q = (torch.randn(B, Sq, Hk, G, hd, device=dev, generator=gen) * 1.5
+         ).to(dt)
+    k, v = ((torch.randn(B, S, Hk, hd, device=dev, generator=gen) * 1.5
+             ).to(dt) for _ in "kv")
+    if kind == "causal":
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()[
+            None, None, None].expand(B, 1, 1, S, S)
+    else:
+        mask = (torch.arange(S, device=dev) <= 250)[None, None, None, None]
+    qk, pv = _qkv_packs(dev, 8, 1, S, gen)
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, mask=mask,
+                                      scale=hd ** -0.5)
+    before = kernels.LAUNCHES["flash_attn_mrq"]
+    out = run()
+    assert kernels.LAUNCHES["flash_attn_mrq"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, _plain(run))
+    kx, vx = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    flat = ops.flash_attention(q.reshape(B, Sq, Hk * G, 1, hd), kx, vx, qk,
+                               pv, mask=mask, scale=hd ** -0.5)
+    assert torch.equal(out.reshape(flat.shape), flat)
