@@ -5,9 +5,10 @@ with a saved artifact cold-started in a fresh process, its recipe
 auto-search with the throughput measured on the card, its evaluation
 path (the research sampler, FD / sFD / IS*, noise MSE), its public
 kernel API (B11, B12, B13, flash's boolean mask), its training path
-(DiT-XL/2 at full width under remat; a float32 resume) and its dense LM
-family (Qwen3-1.7B at full width: the launcher, LM PTQ, kernel serving),
-on one NVIDIA GPU.
+(DiT-XL/2 at full width under remat; a float32 resume), its dense LM
+family (Qwen3-1.7B at full width: the launcher, LM PTQ, kernel serving)
+and its SSM and hybrid families (Mamba2-130M and Hymba-1.5B at full
+width, the same way), on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -229,12 +230,42 @@ Phases (each fatal on failure; exit code 0 only when all pass):
              distance at every depth. It runs right after phase 2's
              device timing (late in a whole run the profiler drops most
              kernel events).
+9. ssm     — the SSM and hybrid families at full width, right after
+             phase 8: ``configs.get("mamba2-130m")`` (24 ``ssm_only``
+             layers, d 768, SSD d_inner 1,536 in 24 heads of 64, state
+             128, chunk 256, vocab 50,280) and ``configs.get("hymba-1.5b")``
+             (32 ``hymba`` layers, d 1,600, 25 heads over 5 kv heads, hd
+             64, window 1,024 with global layers 0, 15, 31, 128 meta
+             tokens, SSD d_inner 3,200 in 50 heads, state 16, SwiGLU
+             5,504, vocab 32,001), bf16, ``lm_init(PRNGKey(0))``. For
+             each: B1 at every linear shape (in_proj's N 3,352 / 6,482,
+             the odd lm_heads' N 50,280 / 32,001 as transposed views, the
+             meta rows' k and v at 4 x 128 rows; M 4 and 8,192; f32 and
+             bf16) and, for Hymba, B3 at hd 64, G 5 over the meta prefix
+             (prefill over 2,048 tokens and a decode row over 2,080
+             slots, each windowed and global) against their plain
+             versions, bit for bit, then in device time beside their
+             bounds; the SSD mixer (no kernel) in float32: ``lm_prefill``
+             of 256 tokens then one ``lm_decode_step`` against
+             ``lm_apply`` on 257 within ``lm_forward_vs_jax_rel``; the FP
+             launcher with ``--prompt_len 256`` in a fresh process; LM PTQ
+             at W8A8 by phase 8's protocol (packs and launches from
+             ``lm_expect``: 49 B1 a forward for Mamba-2, 353 B1 and 32 B3
+             for Hymba, the meta rows' k and v included), the kernel CE
+             within ``lm_kernel_vs_fake_quant_ce_rel`` of fake-quant; one
+             4 x 256 forward on the kernels equal to the plain versions;
+             greedy ``lm_generate`` of 4 x 2,048 prompt tokens -> 32 on
+             the kernels as phase 8 serves it (a decode step's device
+             time by kernel family: B1's GEMM and pass, B3, the cache
+             concatenations, torch's other ops); one whole 4 x 2,048
+             prefill's device time by the same families.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import os
@@ -2245,6 +2276,21 @@ LM_BITS = (8, 6)                      # W8A8, then W6A6
 LM_PROMPT, LM_NEW = 1024, 32          # kernel serving: 4 x 1024 -> 32
 
 
+def lm_expect(cfg):
+    """(packs, B1 launches, B3 launches) of one forward of ``cfg`` under
+    the W8A8 kernel context: every linear packed ``int8`` (q, k, v, o;
+    the SSD's in_proj and out_proj; gate, up, down; the lm_head) and one
+    attention pair a layer; a decode step launches as many. The meta
+    tokens' k and v run B1 again in every forward."""
+    L = cfg.n_layers
+    attn = cfg.block_type in ("attn_mlp", "hymba")
+    ssd = cfg.block_type in ("ssm_only", "hymba")
+    per = 4 * attn + 2 * ssd + 3 * bool(cfg.d_ff)
+    packs = {"int8": per * L + 1, "int8_mrq": 0, "int8_qk": attn * L,
+             "int8_pv": attn * L}
+    return packs, (per + 2 * bool(attn and cfg.n_meta)) * L + 1, attn * L
+
+
 def lm_linear_case(op, M, K, N, bits, dt, gen):
     """B1 at one LM shape against its plain version on the same inputs,
     bit for bit; the tied lm_head's weight codes are a transposed (N, K)
@@ -2281,33 +2327,20 @@ def lm_linear_case(op, M, K, N, bits, dt, gen):
     return check_plain("int8_matmul_fq", out, ref, "B1_vs_plain", what)
 
 
-def lm_attn_call(kind, bits, gen, dt):
-    """(run, what, bytes, int8 ops, fp32 ops) of one B3 call at the LM's
-    shapes through ``ops.flash_attention`` (hd 128, 8 kv heads, G 2,
-    B 4): the causal prefill over 1,024 tokens, or one decode row over a
-    1,056-slot cache whose last 15 slots are past the position (the
-    (1, 1, 1, 1, Skv) validity mask, a ragged last kv tile). The ops
-    count the scores the mask leaves live: S(S+1)/2 a row block at the
-    causal prefill."""
+def flash_call(q, k, v, mask, bits, what):
+    """(run, what, bytes, int8 ops, fp32 ops) of one B3 call through
+    ``ops.flash_attention`` on q (B, Sq, Hk, G, hd), k and v (B, Skv, Hk,
+    hd) under ``mask``, with serving-form packs at ``bits``. The work the
+    function needs: q, k, v and the mask read once, the output written
+    once; the scores the mask leaves live, in every (batch, head, group)
+    row (the kernel computes the masked tiles too)."""
     import torch
 
     from repro_torch.kernels import ops
-    dev = torch.device("cuda")
-    B, Hk, G, hd = 4, 8, 2, 128
+    B, _, Hk, G, hd = q.shape
+    Skv = k.shape[1]
     half = 2 ** (bits - 1)
-    S = LM_PROMPT
-    Sq, Skv = (S, S) if kind == "prefill" else (1, S + LM_NEW)
-    q = (torch.randn(B, Sq, Hk, G, hd, device=dev, generator=gen) * 1.5
-         ).to(dt)
-    k, v = ((torch.randn(B, Skv, Hk, hd, device=dev, generator=gen) * 1.5
-             ).to(dt) for _ in "kv")
-    if kind == "prefill":
-        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev).tril()[
-            None, None, None]
-    else:
-        mask = (torch.arange(Skv, device=dev) <= S + 16)[None, None, None,
-                                                          None]
-    rate = torch.ones(1, 1, device=dev)
+    rate = torch.ones(1, 1, device=q.device)
     s_q = rate * (6.0 / (half - 1))
     qk = {"s_q": s_q, "s_k": s_q * 1.05, "scale": s_q * s_q * 1.05,
           "bits": bits, "groups": 1}
@@ -2318,25 +2351,52 @@ def lm_attn_call(kind, bits, gen, dt):
           "scale2": s_v * (1.0 / half), "bits": bits, "groups": 1}
     run = lambda: ops.flash_attention(q, k, v, qk, pv, mask=mask,
                                       scale=hd ** -0.5)
-    # the work the function needs: q, k, v and the mask read once, the
-    # output written once; the scores the mask leaves live, in every
-    # (batch, head, group) row (the kernel computes the masked tiles too)
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
         + mask.numel()
     scores = B * Hk * G * int(mask.sum())
-    what = (f"{kind} B={B} Sq={Sq} Skv={Skv} Hk={Hk} G={G} hd={hd} "
-            f"{str(dt)[6:]} bits={bits}")
     return run, what, nbytes, 2 * 2 * scores * hd, \
         SOFTMAX_FP32_PER_SCORE * scores
 
 
-def lm_kernel_cases(rows):
-    """B1 at every LM linear shape (M 4: decode and the last prompt row's
-    lm_head; M 4,096: a 4 x 1,024 prefill; bits 8 and 6; f32 and bf16) and
-    B3 at the LM's attention shapes (bits 8 and 6, f32 and bf16) against
-    their plain versions, bit for bit; their max errors join the kernels
-    line's B1 and B3 rows. Then, bf16 bits 8, each shape in device time
-    (the profiler over 20 calls) beside its wrapper time and bound."""
+def qkv_randn(B, Sq, Skv, Hk, G, hd, dt, gen):
+    import torch
+    dev = torch.device("cuda")
+    q = (torch.randn(B, Sq, Hk, G, hd, device=dev, generator=gen) * 1.5
+         ).to(dt)
+    k, v = ((torch.randn(B, Skv, Hk, hd, device=dev, generator=gen) * 1.5
+             ).to(dt) for _ in "kv")
+    return q, k, v
+
+
+def lm_attn_call(kind, bits, gen, dt):
+    """``flash_call`` at the LM's shapes (hd 128, 8 kv heads, G 2, B 4):
+    the causal prefill over 1,024 tokens, or one decode row over a
+    1,056-slot cache whose last 15 slots are past the position (the
+    (1, 1, 1, 1, Skv) validity mask, a ragged last kv tile)."""
+    import torch
+    dev = torch.device("cuda")
+    B, Hk, G, hd = 4, 8, 2, 128
+    S = LM_PROMPT
+    Sq, Skv = (S, S) if kind == "prefill" else (1, S + LM_NEW)
+    q, k, v = qkv_randn(B, Sq, Skv, Hk, G, hd, dt, gen)
+    if kind == "prefill":
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=dev).tril()[
+            None, None, None]
+    else:
+        mask = (torch.arange(Skv, device=dev) <= S + 16)[None, None, None,
+                                                          None]
+    return flash_call(q, k, v, mask, bits,
+                      f"{kind} B={B} Sq={Sq} Skv={Skv} Hk={Hk} G={G} "
+                      f"hd={hd} {str(dt)[6:]} bits={bits}")
+
+
+def lm_kernel_cases(rows, name, linears, attn_calls, bits_list):
+    """B1 at every (op, M, K, N) of ``linears`` and B3 at every call of
+    ``attn_calls`` (functions (bits, gen, dt) -> ``flash_call``'s tuple)
+    against their plain versions at each of ``bits_list`` and f32 and
+    bf16, bit for bit; their max errors join the kernels line's B1 and B3
+    rows. Then, bf16 bits 8, each shape in device time (the profiler over
+    20 calls) beside its wrapper time and bound. Returns the cases held."""
     import torch
 
     from repro_torch import kernels
@@ -2344,13 +2404,12 @@ def lm_kernel_cases(rows):
     gen = torch.Generator(device="cuda").manual_seed(27)
     errs = {"int8_matmul_fq": [], "flash_attn_mrq": []}
     for dt in (torch.bfloat16, torch.float32):
-        for bits in (8, 6):
-            for op, K, N in LM_LINEARS:
-                for M in (4, 4 * LM_PROMPT):
-                    errs["int8_matmul_fq"].append(lm_linear_case(
-                        op, M, K, N, bits, dt, gen))
-            for kind in ("prefill", "decode"):
-                run, what, *_ = lm_attn_call(kind, bits, gen, dt)
+        for bits in bits_list:
+            for op, M, K, N in linears:
+                errs["int8_matmul_fq"].append(lm_linear_case(
+                    op, M, K, N, bits, dt, gen))
+            for call in attn_calls:
+                run, what, *_ = call(bits, gen, dt)
                 before = kernels.LAUNCHES["flash_attn_mrq"]
                 out = run()
                 if kernels.LAUNCHES["flash_attn_mrq"] != before + 1:
@@ -2361,29 +2420,24 @@ def lm_kernel_cases(rows):
                     raise AssertionError(f"B3 {what}: non-finite output")
                 errs["flash_attn_mrq"].append(check_plain(
                     "flash_attn_mrq", out, ref, "B3_mask_vs_plain", what))
-    for name, es in errs.items():
-        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] + es)
-    log(f"LM shapes, device time per call (bf16, bits 8; {CARD[0]}):")
-    shapes = [(op, M, K, N, "", False) for op, K, N in LM_LINEARS
-              for M in (4, 4 * LM_PROMPT)]
-    table = gemm_times.time_shapes(reps=20, shapes=shapes, log=log)
-    for kind in ("prefill", "decode"):
-        run, what, nbytes, i8, f32 = lm_attn_call(kind, 8, gen,
-                                                  torch.bfloat16)
+                del out, ref
+    for key, es in errs.items():
+        if es:
+            rows[key]["max_abs_err"] = max([rows[key]["max_abs_err"]] + es)
+    log(f"{name} shapes, device time per call (bf16, bits 8; {CARD[0]}):")
+    gemm_times.time_shapes(reps=20, log=log, shapes=[
+        (op, M, K, N, "", False) for op, M, K, N in linears])
+    for call in attn_calls:
+        run, what, nbytes, i8, f32 = call(8, gen, torch.bfloat16)
         per = gemm_times.device_ms(run, 20)
         dev_ms = sum(per.values())
         flash_ms = sum(v for k, v in per.items() if k.startswith("flash"))
         b_ms, b_by = bound(nbytes, i8, f32)
-        w_ms = time_ms(run, 20)
         log(f"  flash_attn_mrq {what}: device {dev_ms:.4f} ms (flash_kernel "
             f"{flash_ms:.4f}, the mask's words {dev_ms - flash_ms:.4f} in "
-            f"{len(per) - 1} other kernels); wrapper {w_ms:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        table.append({"op": "attn_" + kind, "device_ms": dev_ms,
-                      "flash_ms": flash_ms, "wrapper_ms": w_ms,
-                      "bound_ms": b_ms})
-    lm_mask_cost()
-    return table
+            f"{len(per) - 1} other kernels); wrapper {time_ms(run, 20):.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by})")
+    return {k: len(v) for k, v in errs.items()}
 
 
 def lm_mask_cost():
@@ -2419,30 +2473,33 @@ def lm_ce(loss, batches, ctx):
         return sum(float(loss(ctx, b)) for b, _ in batches) / len(batches)
 
 
-def lm_launcher():
-    """``python -m repro_torch.launch.serve --arch qwen3-1.7b`` at its
-    defaults (batch 4, prompt 32, 16 new tokens) in a fresh process: the
-    tokens in range; its seconds and ms/token."""
+def lm_launcher(arch, prompt_len=None):
+    """``python -m repro_torch.launch.serve --arch ARCH`` at its defaults
+    (FP, batch 4, prompt 32, 16 new tokens; ``prompt_len`` overrides the
+    prompt, which an SSD model needs as a multiple of its chunk of 256) in
+    a fresh process: its lines, the tokens in range, its seconds."""
     from repro_torch.configs import get
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = ["--arch", arch] + ([] if prompt_len is None else
+                               ["--prompt_len", str(prompt_len)])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           "--arch", LM_ARCH], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                          + argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"LM launcher exited {proc.returncode}: "
+        raise AssertionError(f"{arch} launcher exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     gen_line = next(l for l in proc.stdout.splitlines()
                     if l.startswith("generated "))
     # numpy wraps the sample's 16 tokens over lines, as the reference's
     toks = [int(t) for t in proc.stdout.split("sample:", 1)[1].split(
         "[", 1)[1].split("]", 1)[0].split()]
-    vocab = get(LM_ARCH).vocab
+    vocab = get(arch).vocab
     if len(toks) != 16 or not all(0 <= t < vocab for t in toks):
-        raise AssertionError(f"LM launcher tokens out of range: {toks}")
-    log(f"lm: launcher (FP, bf16, 4 x 32 -> 16) {gen_line}; process "
-        f"{wall:.1f} s; tokens {toks}")
+        raise AssertionError(f"{arch} launcher tokens out of range: {toks}")
+    log(f"lm {arch}: launcher (FP, bf16, 4 x {prompt_len or 32} -> 16) "
+        f"{gen_line}; process {wall:.1f} s; tokens {toks}")
     return wall
 
 
@@ -2455,7 +2512,6 @@ def lm_ptq(params, cfg, bits, calib_b, eval_b, fp_ce):
     kernel CE's launch counts)."""
     import torch
 
-    from repro_torch import kernels
     from repro_torch.core import calib
     from repro_torch.core.baselines import tq_dit
     from repro_torch.core.contexts import QuantContext
@@ -2483,29 +2539,29 @@ def lm_ptq(params, cfg, bits, calib_b, eval_b, fp_ce):
     del weights
     n = lambda key: sum(key in p for p in packed.values())
     counts = {k: n(k) for k in ("int8", "int8_mrq", "int8_qk", "int8_pv")}
-    L = cfg.n_layers
-    if counts != {"int8": 7 * L + 1, "int8_mrq": 0, "int8_qk": L,
-                  "int8_pv": L}:
-        raise AssertionError(f"W{bits}A{bits} packs {counts}")
+    packs, n_b1, n_b3 = lm_expect(cfg)
+    if counts != packs:
+        raise AssertionError(f"W{bits}A{bits} packs {counts} != {packs}")
     head_s = rep["op_search_s"].get("lm_head", 0.0)
     fq_ce = lm_ce(loss, eval_b, QuantContext(qparams=qp))
     kctx = QuantContext(qparams=packed, kernel=True)
     k_ce, launches, k_s = counted(lambda: lm_ce(loss, eval_b, kctx))
     want = {k: 0 for k in launches}
-    want["int8_matmul_fq"] = (7 * L + 1) * len(eval_b)
-    want["flash_attn_mrq"] = L * len(eval_b)
+    want["int8_matmul_fq"] = n_b1 * len(eval_b)
+    want["flash_attn_mrq"] = n_b3 * len(eval_b)
     if launches != want:
         raise AssertionError(f"W{bits}A{bits} CE launches {launches} != "
                              f"{want}")
     tol = TOLERANCES["lm_kernel_vs_fake_quant_ce_rel"][0]
     drift = abs(k_ce - fq_ce) / fq_ce
-    log(f"lm: W{bits}A{bits} tq_dit calibration {calib_s:.2f} s (capture "
+    log(f"lm {cfg.name}: W{bits}A{bits} tq_dit calibration {calib_s:.2f} s (capture "
         f"{rep['capture_s']:.2f}, search {rep['search_s']:.2f}; lm_head's "
         f"search {head_s:.2f} s; {rep['n_quantized']} ops), packing "
         f"{pack_s:.2f} s; packs {counts}; CE fp {fp_ce:.5f}, fake-quant "
         f"{fq_ce:.5f} ({fq_ce - fp_ce:+.5f}), kernels {k_ce:.5f} "
         f"({k_ce - fp_ce:+.5f}; {k_s * 1e3 / len(eval_b):.1f} ms a "
-        f"4 x 64 forward); kernel vs fake-quant {drift:.3g} "
+        f"4 x 64 forward; {n_b1} B1 and {n_b3} B3 launches a forward); "
+        f"kernel vs fake-quant {drift:.3g} "
         f"(lm_kernel_vs_fake_quant_ce_rel {tol}); {CARD[0]}")
     if not (drift <= tol and finite(k_ce, fq_ce)):
         raise AssertionError(f"W{bits}A{bits} kernel CE {k_ce} vs "
@@ -2519,9 +2575,9 @@ def finite(*xs):
 
 
 def lm_forward_vs_plain(params, cfg, packed, batch):
-    """One W8A8 4 x 64 forward on the kernels against the same forward on
-    the plain versions (every linear's B1, every attention call's B3 with
-    its causal mask): equal bit for bit."""
+    """One W8A8 forward of ``batch`` on the kernels against the same
+    forward on the plain versions (every linear's B1, every attention
+    call's B3 with its mask): equal bit for bit."""
     import torch
 
     from repro_torch import kernels
@@ -2535,48 +2591,52 @@ def lm_forward_vs_plain(params, cfg, packed, batch):
             ref = lm.lm_apply(params, cfg, batch["tokens"], ctx=ctx)[0]
     rel = float((out.float() - ref.float()).norm() / ref.float().norm())
     tol = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
-    log(f"lm: W8A8 4 x 64 forward on the kernels vs the plain versions: "
-        f"rel L2 {rel} (registry dit_forward_kernel_vs_plain_rel {tol})")
+    B, S = batch["tokens"].shape
+    log(f"lm {cfg.name}: W8A8 {B} x {S} forward on the kernels vs the "
+        f"plain versions: rel L2 {rel} (registry "
+        f"dit_forward_kernel_vs_plain_rel {tol})")
     if not rel <= tol:
         raise AssertionError(f"LM kernel forward vs plain: {rel}")
 
 
-def lm_prompts(cfg):
-    """The 4 ``TokenPipeline`` prompts of 1,024 tokens the serving runs
+def lm_prompts(cfg, S=LM_PROMPT):
+    """The 4 ``TokenPipeline`` prompts of ``S`` tokens the serving runs
     and the logits witness read, on the card."""
     import torch
 
     from repro_torch.data.synthetic import TokenPipeline
-    return TokenPipeline(cfg.vocab, seq_len=LM_PROMPT, batch=4,
+    return TokenPipeline(cfg.vocab, seq_len=S, batch=4,
                          seed=7).batch_at(0, device=torch.device("cuda"))[
                              "tokens"]
 
 
-def lm_serve(params, cfg, packed):
+def lm_serve(params, cfg, packed, S=LM_PROMPT):
     """Greedy ``lm_generate`` under W8A8's kernel context on
-    ``lm_prompts``, 32 new tokens: prefill ms, decode ms/token (two
-    ``lm_generate`` calls, of 32 new tokens and of 1, differenced over
-    the 31 steps between), tokens/s from it, the serve's peak memory,
-    launches (B1 on every linear, one B3 per layer per forward). The
-    prefill's logits on the kernels equal the plain versions' (bit for
-    bit). One decode step's wall time (CUDA events) beside its device
-    busy time (the profiler's kernel durations): the idle share, and the
-    kernels a step."""
+    ``lm_prompts(cfg, S)``, 32 new tokens: prefill ms, decode ms/token
+    (two ``lm_generate`` calls, of 32 new tokens and of 1, differenced
+    over the 31 steps between), tokens/s from it, the serve's peak
+    memory, launches (``lm_expect``: B1 on every linear, one B3 per layer
+    per forward). The prefill's logits on the kernels equal the plain
+    versions' (bit for bit). One decode step's wall time (CUDA events)
+    beside its device busy time (the profiler's kernel durations): the
+    idle share, the kernels a step, and their device time by family."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.core.contexts import QuantContext
     from repro_torch.kernels.ref import TOLERANCES
     from repro_torch.models import lm
-    prompts = lm_prompts(cfg)
+    prompts = lm_prompts(cfg, S)
     (B, S), n = prompts.shape, LM_NEW
+    _, n_b1, n_b3 = lm_expect(cfg)
+    warm = cfg.ssm_chunk if cfg.block_type != "attn_mlp" else 64
     kctx = QuantContext(qparams=packed, kernel=True)
     prefill = lambda: lm.lm_prefill(params, cfg, prompts, ctx=kctx,
                                     max_len=S + n)
     generate = lambda k: lm.lm_generate(params, cfg, prompts, k, ctx=kctx,
                                         max_len=S + n)
     with torch.no_grad():
-        lm.lm_generate(params, cfg, prompts[:, :64], 2, ctx=kctx)  # warm-up
+        lm.lm_generate(params, cfg, prompts[:, :warm], 2, ctx=kctx)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill()
@@ -2588,9 +2648,9 @@ def lm_serve(params, cfg, packed):
                         / ref.float().norm())
         del ref
         exact = TOLERANCES["dit_forward_kernel_vs_plain_rel"][0]
-        log(f"lm: W8A8 prefill logits (4 x {S}) on the kernels vs the plain "
-            f"versions: rel L2 {r_plain} (dit_forward_kernel_vs_plain_rel "
-            f"{exact})")
+        log(f"lm {cfg.name}: W8A8 prefill logits (4 x {S}) on the kernels vs "
+            f"the plain versions: rel L2 {r_plain} "
+            f"(dit_forward_kernel_vs_plain_rel {exact})")
         if not (torch.isfinite(logits.float()).all() and r_plain <= exact):
             raise AssertionError(f"LM prefill logits: finite "
                                  f"{bool(torch.isfinite(logits).all())}, "
@@ -2599,25 +2659,26 @@ def lm_serve(params, cfg, packed):
         step = lambda: lm.lm_decode_step(params, cfg, tok, cache, S,
                                          ctx=kctx)
         wall_ms = time_ms(step, 3, warmup=1)
-        busy_ms, n_kern = decode_busy(step, 7 * cfg.n_layers + 1,
-                                      cfg.n_layers)
+        busy_ms, n_kern, fams = device_busy(step)
         del cache, logits
-        torch.cuda.empty_cache()
+        gc.collect()       # the peak: this serve's memory, not uncollected
+        torch.cuda.empty_cache()       # cycles of an earlier phase
         torch.cuda.reset_peak_memory_stats()
         toks, launches, gen_s = counted(lambda: generate(n))
         one_s = counted(lambda: generate(1))[2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    L, fw = cfg.n_layers, n + 1
+    fw = n + 1
     want = {k: 0 for k in launches}
-    want["int8_matmul_fq"] = (7 * L + 1) * fw
-    want["flash_attn_mrq"] = L * fw
+    want["int8_matmul_fq"] = n_b1 * fw
+    want["flash_attn_mrq"] = n_b3 * fw
     if launches != want:
         raise AssertionError(f"LM generate launches {launches} != {want}")
     if toks.shape != (B, n) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab:
         raise AssertionError(f"LM generate tokens {toks.shape}")
     dec_ms = (gen_s - one_s) * 1e3 / (n - 1)
-    log(f"lm: W8A8 kernel serving {B} x {S} -> {n} (greedy): prefill "
+    log(f"lm {cfg.name}: W8A8 kernel serving {B} x {S} -> {n} (greedy): "
+        f"prefill "
         f"{prefill_ms:.1f} ms, lm_generate {gen_s * 1e3:.1f} ms ({n} new "
         f"tokens) and {one_s * 1e3:.1f} ms (1), so decode {dec_ms:.2f} "
         f"ms/token ({B * 1e3 / dec_ms:.1f} tokens/s decode, "
@@ -2627,8 +2688,9 @@ def lm_serve(params, cfg, packed):
         + ("device busy not measured (the profiler dropped kernel events); "
            if busy_ms is None else
            f"device busy {busy_ms:.2f} ms (the profiler's kernel durations "
-           f"over 2; idle share {1 - busy_ms / wall_ms:.3f}), {n_kern:.1f} "
-           "kernels; ") +
+           f"over 1; idle share {1 - busy_ms / wall_ms:.3f}), {n_kern:.1f} "
+           "kernels, device ms by family " + ", ".join(
+               f"{k} {v:.3f}" for k, v in fams.items()) + "; ") +
         f"launches {want['int8_matmul_fq']} B1, {want['flash_attn_mrq']} "
         f"B3; {CARD[0]}")
     return launches
@@ -2746,28 +2808,76 @@ def lm_logits_witness(params, cfg, qp, packed):
                              f"full precision {ratios}, bound {tol}")
 
 
-def decode_busy(step, gemms, flashes):
-    """(device busy ms, kernels) of one ``step`` from the profiler's
-    kernel durations over 2 steps, or (None, None) when three profiles
-    each lost some of the step's GEMM or flash events."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                step()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        if (sum("gemm_kernel" in e.name for e in ev) >= 2 * gemms
-                and sum("flash_kernel" in e.name for e in ev) >= 2 * flashes):
-            return sum(e.time_range.elapsed_us() for e in ev) / 2e3, \
-                len(ev) / 2
-    return None, None
+KERNEL_FAMILIES = (("B1 GEMM", "gemm_kernel"), ("B1 pass", "prologue_"),
+                   ("B3", "flash_kernel"), ("cat", "CatArrayBatchedCopy"))
+
+
+def device_busy(run, reps=1):
+    """(device busy ms, kernels, {family: device ms}) of one call of
+    ``run`` from the profiler's kernel durations over ``reps`` calls
+    (``gemm_times.kernel_events``, holding a B1 GEMM event for every B1
+    launch and a B3 event for every B3 launch; families:
+    ``KERNEL_FAMILIES`` by name, the rest "torch other"), or (None, None,
+    {}) when every profile lost events."""
+    from repro_torch.launch.gemm_times import kernel_events
+    got = kernel_events(run, reps, must=False, kinds={
+        "int8_matmul_fq": "gemm_kernel", "flash_attn_mrq": "flash_kernel"})
+    if got is None:
+        return None, None, {}
+    ev = got[0]
+    fams = {}
+    for name, us in ev:
+        fam = next((f for f, key in KERNEL_FAMILIES if key in name),
+                   "torch other")
+        fams[fam] = fams.get(fam, 0.0) + us / (reps * 1e3)
+    return sum(us for _, us in ev) / (reps * 1e3), len(ev) / reps, fams
 
 
 def merge_counts(a, b):
     return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def lm_setup(cfg):
+    """``cfg``'s parameters from ``lm_init(PRNGKey(0))`` on the card, the
+    6 calibration and 4 held-out ``TokenPipeline`` batches of 4 x 64
+    (``examples/lm_ptq.py``'s protocol) and the full-precision CE on the
+    held-out ones."""
+    import torch
+
+    from repro_torch.core import calib
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.diffusion import rng
+    from repro_torch.models import lm
+    from repro_torch.nn.ctx import FPContext
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = lm.lm_init(rng.PRNGKey(0, device=dev), cfg, device=dev)
+    torch.cuda.synchronize()
+    mixers = []
+    if cfg.block_type != "ssm_only":
+        mixers.append(f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
+                      f"{cfg.head_dim}" + (
+                          f", window {cfg.window}, globals "
+                          f"{cfg.global_layers}" if cfg.window else "")
+                      + (f", {cfg.n_meta} meta tokens" if cfg.n_meta
+                         else ""))
+    if cfg.block_type != "attn_mlp":
+        mixers.append(f"SSD d_inner {cfg.d_inner} in "
+                      f"{cfg.ssd_cfg().n_heads} heads of {cfg.ssm_head_dim},"
+                      f" state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    if cfg.d_ff:
+        mixers.append(f"d_ff {cfg.d_ff}")
+    log(f"lm {cfg.name} at full width ({cfg.n_layers} {cfg.block_type} "
+        f"layers, d {cfg.d_model}, " + ", ".join(mixers) + f", vocab "
+        f"{cfg.vocab}, bf16; {cfg.n_params():,} parameters) from "
+        f"lm_init(PRNGKey(0)) in {time.perf_counter() - t0:.1f} s")
+    pipe = TokenPipeline(cfg.vocab, seq_len=64, batch=4, seed=5)
+    calib_b = calib.build_lm_calibration(
+        [pipe.batch_at(i, device=dev)["tokens"] for i in range(6)])
+    eval_b = calib.build_lm_calibration(
+        [pipe.batch_at(100 + i, device=dev)["tokens"] for i in range(4)])
+    fp_ce = lm_ce(calib.lm_loss_fn(params, cfg), eval_b, FPContext())
+    return params, calib_b, eval_b, fp_ce
 
 
 def phase_lm(rows):
@@ -2776,30 +2886,16 @@ def phase_lm(rows):
 
     from repro_torch import kernels
     from repro_torch.configs import get
-    from repro_torch.core import calib
-    from repro_torch.data.synthetic import TokenPipeline
-    from repro_torch.diffusion import rng
-    from repro_torch.models import lm
-    from repro_torch.nn.ctx import FPContext
     t_phase = time.perf_counter()
-    lm_kernel_cases(rows)
-    lm_launcher()
-    dev = torch.device("cuda")
+    lm_kernel_cases(
+        rows, LM_ARCH, [(op, M, K, N) for op, K, N in LM_LINEARS
+                        for M in (4, 4 * LM_PROMPT)],
+        [lambda b, g, d, kind=kind: lm_attn_call(kind, b, g, d)
+         for kind in ("prefill", "decode")], LM_BITS)
+    lm_mask_cost()
+    lm_launcher(LM_ARCH)
     cfg = get(LM_ARCH)
-    t0 = time.perf_counter()
-    params = lm.lm_init(rng.PRNGKey(0, device=dev), cfg, device=dev)
-    torch.cuda.synchronize()
-    log(f"lm: {LM_ARCH} at full width ({cfg.n_layers} layers, d "
-        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
-        f"{cfg.head_dim}, vocab {cfg.vocab}, bf16; {cfg.n_params():,} "
-        f"parameters) from lm_init(PRNGKey(0)) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    pipe = TokenPipeline(cfg.vocab, seq_len=64, batch=4, seed=5)
-    calib_b = calib.build_lm_calibration(
-        [pipe.batch_at(i, device=dev)["tokens"] for i in range(6)])
-    eval_b = calib.build_lm_calibration(
-        [pipe.batch_at(100 + i, device=dev)["tokens"] for i in range(4)])
-    fp_ce = lm_ce(calib.lm_loss_fn(params, cfg), eval_b, FPContext())
+    params, calib_b, eval_b, fp_ce = lm_setup(cfg)
     launches = {k: 0 for k in kernels.LAUNCHES}
     for bits in LM_BITS:
         qp, packed, n = lm_ptq(params, cfg, bits, calib_b, eval_b, fp_ce)
@@ -2811,6 +2907,170 @@ def phase_lm(rows):
         del qp, packed
         torch.cuda.empty_cache()
     log(f"lm: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: v for k, v in launches.items() if v}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the SSM and hybrid families — Mamba2-130M and Hymba-1.5B at full
+# width
+# ---------------------------------------------------------------------------
+SSM_ARCHS = ("mamba2-130m", "hymba-1.5b")
+SSM_PROMPT = 2048                     # kernel serving: 4 x 2048 -> 32
+
+
+def ssm_linears(cfg):
+    """(op, M, K, N) of every linear shape of ``cfg``'s forward: the
+    decode step's M 4 and the 4 x 2,048 prefill's rows, the meta tokens'
+    k and v at 4 x 128 rows; the tied lm_head's weight a transposed
+    view."""
+    d, sc = cfg.d_model, cfg.ssd_cfg()
+    n_in = 2 * sc.d_inner + 2 * sc.n_groups * sc.d_state + sc.n_heads
+    ops = [("in_proj", d, n_in), ("out_proj", sc.d_inner, d)]
+    if cfg.block_type == "hymba":
+        hd = cfg.head_dim
+        ops += [("q/o", d, cfg.n_heads * hd), ("k/v", d, cfg.n_kv_heads * hd),
+                ("gate/up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+    ops.append(("lm_head", d, cfg.vocab))
+    shapes = [(op, M, K, N) for op, K, N in ops
+              for M in (4, 4 * SSM_PROMPT)]
+    if cfg.n_meta:
+        shapes.append(("meta k/v", 4 * cfg.n_meta, d,
+                       cfg.n_kv_heads * cfg.head_dim))
+    return shapes
+
+
+def ssm_attn_call(cfg, kind, windowed, bits, gen, dt):
+    """``flash_call`` at Hymba's shapes (hd 64, 5 kv heads, G 5, B 4): kv
+    is the 128 meta tokens then the sequence; the prefill's queries over
+    2,048 tokens under the causal mask, or one decode row over a
+    2,080-slot cache whose last 15 slots are past the position, each
+    with the window of 1,024 (a windowed layer) or without (layers 0, 15,
+    31); the meta prefix visible to every query."""
+    import torch
+    dev = torch.device("cuda")
+    B, Hk, hd = 4, cfg.n_kv_heads, cfg.head_dim
+    G, n_meta, S = cfg.n_heads // Hk, cfg.n_meta, SSM_PROMPT
+    kpos = torch.arange(S + LM_NEW if kind == "decode" else S, device=dev)
+    qpos = kpos if kind == "prefill" else torch.tensor([S + 16], device=dev)
+    live = kpos[None, :] <= qpos[:, None]
+    if windowed:
+        live &= kpos[None, :] > qpos[:, None] - cfg.window
+    mask = torch.cat([torch.ones(len(qpos), n_meta, dtype=torch.bool,
+                                 device=dev), live], dim=1)[None, None, None]
+    Sq, Skv = mask.shape[-2:]
+    q, k, v = qkv_randn(B, Sq, Skv, Hk, G, hd, dt, gen)
+    return flash_call(
+        q, k, v, mask, bits,
+        f"{kind} {'window ' + str(cfg.window) if windowed else 'global'} "
+        f"B={B} Sq={Sq} Skv={Skv} (meta {n_meta}) Hk={Hk} G={G} hd={hd} "
+        f"{str(dt)[6:]} bits={bits}")
+
+
+def ssm_mixer_check(cfg):
+    """The SSD mixer's check on the card (it has no kernel): in float32
+    at full width, ``lm_prefill`` of 256 tokens (one chunk) then one
+    ``lm_decode_step`` equals ``lm_apply`` on the 257 tokens (two chunks,
+    the second padded) at those positions, within
+    ``lm_forward_vs_jax_rel``: the chunked scan against the per-token
+    recurrence."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.diffusion import rng
+    from repro_torch.kernels.ref import TOLERANCES
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p = lm.lm_init(rng.PRNGKey(0, device=dev), c32, device=dev)
+    S = cfg.ssm_chunk
+    toks = lm_prompts(cfg, S + 1)[:2]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    with torch.no_grad():
+        full = lm.lm_apply(p, c32, toks)[0]
+        lg, cache = lm.lm_prefill(p, c32, toks[:, :S], max_len=S + 1)
+        r0 = rel(lg[:, 0], full[:, S - 1])
+        lg, cache = lm.lm_decode_step(p, c32, toks[:, S:], cache, S)
+        r1 = rel(lg[:, 0], full[:, S])
+    tol = TOLERANCES["lm_forward_vs_jax_rel"][0]
+    log(f"ssm {cfg.name}: float32 prefill of {S} tokens then one decode "
+        f"step against lm_apply on {S + 1}: max |diff| / max |logit| "
+        f"{r0:.3g} (prefill), {r1:.3g} (decode) (lm_forward_vs_jax_rel "
+        f"{tol}); {CARD[0]}")
+    if not (r0 <= tol and r1 <= tol):
+        raise AssertionError(f"{cfg.name} mixer: prefill {r0}, decode {r1}")
+    del p, full, cache
+    torch.cuda.empty_cache()
+
+
+def prefill_time(params, cfg, packed):
+    """Device time of one whole ``lm_prefill`` of 4 x 2,048 tokens under
+    the W8A8 kernel context, by kernel family (``device_busy``): B1 and
+    B3 apart from the cache concatenations and torch's other ops, which
+    hold the SSD mixers' conv, chunk einsums and gated norms beside the
+    layers' norms, residual adds and the embedding."""
+    import torch
+
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.models import lm
+    prompts = lm_prompts(cfg, SSM_PROMPT)
+    kctx = QuantContext(qparams=packed, kernel=True)
+    with torch.no_grad():
+        busy, n_kern, fams = device_busy(
+            lambda: lm.lm_prefill(params, cfg, prompts, ctx=kctx), reps=1)
+    if busy is None:
+        log(f"ssm {cfg.name}: the 4 x {SSM_PROMPT} prefill's device time "
+            f"not measured (the profiler dropped kernel events); {CARD[0]}")
+        return
+    log(f"ssm {cfg.name}: one 4 x {SSM_PROMPT} prefill on the kernels: "
+        f"device busy {busy:.3f} ms, {n_kern:.0f} kernels, device ms by "
+        f"family " + ", ".join(f"{k} {v:.3f}" for k, v in fams.items())
+        + f"; {CARD[0]}")
+
+
+def phase_ssm_kernels(rows):
+    """Phase 9's B1 and B3 cases and their device times, for both
+    models; run before phase 8's serving (see ``main``)."""
+    from repro_torch.configs import get
+    t0 = time.perf_counter()
+    for arch in SSM_ARCHS:
+        cfg = get(arch)
+        attn = ([lambda b, g, d, kind=kind, w=w: ssm_attn_call(
+            cfg, kind, w, b, g, d) for kind in ("prefill", "decode")
+            for w in (True, False)] if cfg.block_type == "hymba" else [])
+        cases = lm_kernel_cases(rows, arch, ssm_linears(cfg), attn, (8,))
+        log(f"ssm {arch}: B1 / B3 cases held against the plain versions: "
+            f"{cases}")
+    log(f"ssm: phase 9's kernel cases took {time.perf_counter() - t0:.1f} "
+        "s")
+
+
+def phase_ssm(rows):
+    """Phase 9 (see the module docstring) after its kernel cases
+    (``phase_ssm_kernels``). Returns its launch counts."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    for arch in SSM_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get(arch)
+        ssm_mixer_check(cfg)
+        lm_launcher(arch, prompt_len=256)
+        params, calib_b, eval_b, fp_ce = lm_setup(cfg)
+        qp, packed, n = lm_ptq(params, cfg, 8, calib_b, eval_b, fp_ce)
+        del qp
+        lm_forward_vs_plain(params, cfg, packed, {
+            "tokens": lm_prompts(cfg, cfg.ssm_chunk)})
+        n = merge_counts(n, lm_serve(params, cfg, packed, S=SSM_PROMPT))
+        prefill_time(params, cfg, packed)
+        launches = merge_counts(launches, n)
+        del params, packed
+        torch.cuda.empty_cache()
+        log(f"ssm {arch}: {time.perf_counter() - t_arch:.1f} s")
+    log(f"ssm: phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return {k: v for k, v in launches.items() if v}
 
 
@@ -3029,9 +3289,11 @@ def main() -> int:
     phase_gemm_device(rows)
     phase_attn_device(rows)
     phase_composed_device(rows)
-    # phase 8 runs here, beside phase 2's device timing: late in a whole
-    # run the profiler has dropped most kernel events in every profile
-    lm_launches = phase_lm(rows)
+    # phases 8 and 9 run here, beside phase 2's device timing: late in a
+    # whole run the profiler has dropped most kernel events in every
+    # profile
+    phase_ssm_kernels(rows)
+    lm_launches = merge_counts(phase_lm(rows), phase_ssm(rows))
     drifts, setup, fp = phase_trained()
     ho = phase_trained_ho(setup, fp, drifts)
     del fp

@@ -329,6 +329,31 @@ TOLERANCES = {
                                             "neither is held here, flash "
                                             "is held exactly against its "
                                             "plain versions"),
+    # the SSM and hybrid families (nn/ssm.py, models/lm.py's ssm_only and
+    # hymba blocks) vs the reference's, on the CPU
+    "ssd_init_ulps": (2, "ssd_init's dt_bias (dt = exp(u * (log(dt_max) - "
+                      "log(dt_min)) + log(dt_min)), then dt + log(-expm1("
+                      "-dt))) and A_log (log of 1..H) are float32 "
+                      "transcendentals, each of which XLA's CPU and torch "
+                      "may round an ulp apart; measured: dt_bias 1 ulp, "
+                      "A_log equal"),
+    "ssm_bf16_vs_jax_rel": (3e-2, "a bf16 SSD mixer or SSM / hybrid LM "
+                            "(logits, prefill state, decode) against the "
+                            "reference's on the same bf16 weights, over "
+                            "the largest |value|: XLA's CPU keeps f32 "
+                            "across a fused chain of elementwise ops (the "
+                            "causal conv's taps, SiLU, the gated norm), "
+                            "where torch rounds each op to bf16, and its "
+                            "bf16 dots accumulate in another order; each "
+                            "flip is one bf16 ulp (2^-8 relative) and the "
+                            "layers carry them on; measured 7e-3 to "
+                            "1.6e-2 on the smoke configs, the same to 4 "
+                            "digits whichever pair of a chunk's "
+                            "three-operand einsums is contracted first "
+                            "(jnp.einsum picks by shape). Greedy tokens "
+                            "may first differ only where the two "
+                            "candidates' logits lie within this share of "
+                            "the largest |logit|"),
     "eval_score_assets_rel": (1e-5, "one generated set scored against "
                               "the port's and the reference's real "
                               "latents (eval_latents_atol apart): "

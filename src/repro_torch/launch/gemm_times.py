@@ -146,48 +146,73 @@ def kernel_name(name: str) -> str:
 
 
 PROFILE_TRIES = 5
+EDGE, EDGES = "spin_kernel", 4     # torch.cuda._sleep's kernel, and how many
 
 
-def kernel_events(run, reps: int):
+def kernel_events(run, reps: int, *, must: bool = True, kinds=None):
     """([(name, device µs)] of the profiler's CUDA kernel events,
     {wrapper: launches}) of ``reps`` calls of ``run`` after one warm-up
     call; the launches are the wrappers' counts (``kernels.LAUNCHES``)
     over those calls.
 
     The profiler can drop events: on the H100 one in 90, or every event of
-    a session. Every call runs the same kernels and makes at least one
-    event, and every counted launch one, so a session whose events are
-    fewer than the calls or the launches, or whose count for some kernel
-    is not a multiple of ``reps``, lost some: the calls are profiled again,
-    up to ``PROFILE_TRIES`` sessions, and then this raises."""
+    a session, and late in a long run the first or last two of every
+    session. So each session opens and closes with ``EDGES`` short
+    ``torch.cuda._sleep`` kernels, which take that last loss and are left
+    out by name (``EDGE``); where the kept session lost any of them, this
+    says so on stderr. Every call runs the same kernels and makes at least
+    one event, and every counted launch one, so a session whose events are
+    fewer than the calls or the launches, whose count for some kernel is
+    not a multiple of ``reps``, or (``kinds``: {wrapper: a substring of
+    its kernel's name}) whose events of such a kernel are fewer than its
+    wrapper's launches, lost some: the calls are profiled again, up to
+    ``PROFILE_TRIES`` sessions, and then this raises, or returns None
+    where not ``must``."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
+
+    def edges():
+        for _ in range(EDGES):
+            torch.cuda._sleep(1000)
     run()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
         before = dict(kernels.LAUNCHES)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            edges()
             for _ in range(reps):
                 run()
+            edges()
             torch.cuda.synchronize()
         launched = {k: v - before.get(k, 0)
                     for k, v in kernels.LAUNCHES.items()
                     if v != before.get(k, 0)}
-        events = [(e.name, e.time_range.elapsed_us())
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        cuda = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [(k, us) for k, us in cuda if EDGE not in k]
         counts = collections.Counter(k for k, _ in events)
-        if (len(events) >= max(reps, sum(launched.values()))
+        short = {w: key for w, key in (kinds or {}).items()
+                 if sum(key in k for k, _ in events) < launched.get(w, 0)}
+        if (len(events) >= max(reps, sum(launched.values())) and not short
                 and all(n % reps == 0 for n in counts.values())):
+            cut = 2 * EDGES - (len(cuda) - len(events))
+            if cut:
+                print(f"the profiler dropped {cut} of the session's "
+                      f"{2 * EDGES} edge kernel events; its {len(events)} "
+                      "other events passed the checks", file=sys.stderr,
+                      flush=True)
             return events, launched
         print(f"the profiler recorded {len(events)} kernel events for "
-              f"{reps} calls and {sum(launched.values())} launches; "
-              "profiling again", file=sys.stderr, flush=True)
+              f"{reps} calls and {sum(launched.values())} launches"
+              + (f", too few of {sorted(short.values())}" if short else "")
+              + "; profiling again", file=sys.stderr, flush=True)
         time.sleep(1.0)
+    if not must:
+        return None
     raise RuntimeError(f"the profiler lost kernel events in "
                        f"{PROFILE_TRIES} sessions of {reps} calls")
 

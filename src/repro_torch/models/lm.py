@@ -1,6 +1,7 @@
-"""Decoder-only LM — port of the ``attn_mlp`` block path of
-``repro/models/lm.py`` (the dense family: qwen3, qwen2.5, stablelm,
-chameleon's backbone).
+"""Decoder-only LM — port of the ``attn_mlp``, ``ssm_only`` and ``hymba``
+block paths of ``repro/models/lm.py`` (the dense family: qwen3, qwen2.5,
+stablelm, chameleon's backbone; mamba2's SSD blocks; hymba's parallel
+attention and SSD heads).
 
 One parameter layout, the reference's: per-layer parameters stacked on a
 leading ``L`` axis. The layers run in a Python loop with layer-distinct
@@ -13,9 +14,11 @@ backward, as the reference's ``jax.checkpoint(body)``).
 Step functions: ``lm_apply`` / ``lm_loss_fn`` (next-token CE), ``lm_prefill``
 (forward + decode cache), ``lm_decode_step`` (one token against the
 cache, written in place) and ``lm_generate`` (greedy, or sampled with
-``rng.categorical``). The other block types wait for ROADMAP queue 1,
-item 8: ``ssm_only`` and ``hymba`` for 8(b), ``attn_type="mla"`` and
-``moe`` for 8(d); they raise.
+``rng.categorical``). The decode cache holds {'kv': (L, B, max_len, Hk,
+hd) k and v} for attention blocks and {'ssm': {'h': (L, B, H, P, N)
+f32, 'conv': (L, B, d_conv - 1, conv_ch)}} for SSD blocks; hymba blocks
+hold both. The encoder-decoder waits for ROADMAP queue 1, item 8(c),
+``attn_type="mla"`` and ``moe`` for 8(d); they raise.
 """
 from __future__ import annotations
 
@@ -38,26 +41,26 @@ from repro_torch.nn.layers import (
     layernorm_init, linear_init, rmsnorm_apply, rmsnorm_init,
 )
 from repro_torch.nn.mlp import mlp_apply, mlp_init
-from repro_torch.nn.ssm import SSM_ITEM
+from repro_torch.nn.ssm import (ssd_apply, ssd_decode, ssd_init,
+                                ssd_state_init)
 from repro_torch.nn.tree import map_tree, stack_trees
 
 _FP = FPContext()
 _ZERO_AUX = {"aux_loss": 0.0, "router_z": 0.0}
+_ATTN = ("attn_mlp", "hymba")       # block types with an attention mixer
+_SSD = ("ssm_only", "hymba")         # block types with an SSD mixer
 
 
-def _dense_only(cfg: ModelCfg):
+def _supported(cfg: ModelCfg):
     """Raise for the families this module does not run yet."""
     if cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder is {ENCDEC_ITEM}")
-    if cfg.block_type in ("ssm_only", "hymba") or cfg.attn_type == "none":
-        raise NotImplementedError(
-            f"{cfg.name}: block_type={cfg.block_type!r} is {SSM_ITEM}")
     if cfg.attn_type == "mla" or cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: {'MLA' if cfg.attn_type == 'mla' else 'MoE'} is "
             f"{MLA_ITEM}")
-    if cfg.block_type != "attn_mlp":
+    if cfg.block_type not in _ATTN + _SSD:
         raise ValueError(cfg.block_type)
 
 
@@ -82,15 +85,27 @@ def _norm_apply(p, cfg: ModelCfg, x):
 # ---------------------------------------------------------------------------
 def block_init(key, cfg: ModelCfg):
     """One layer's parameters: ``split(key, 8)`` as the reference."""
-    _dense_only(cfg)
+    _supported(cfg)
     ks = rng.split(key, 8)
-    p: Dict[str, Any] = {"norm1": _norm_init(ks[0], cfg),
-                         "attn": attention_init(
-                             ks[1], cfg.attn_cfg(window=cfg.window),
-                             cfg.tdtype),
-                         "norm2": _norm_init(ks[2], cfg)}
-    if cfg.d_ff:
-        p["mlp"] = mlp_init(ks[3], cfg.mlp_cfg(), cfg.tdtype)
+    dt = cfg.tdtype
+    p: Dict[str, Any] = {"norm1": _norm_init(ks[0], cfg)}
+    if cfg.block_type in _ATTN:
+        p["attn"] = attention_init(ks[1], cfg.attn_cfg(window=cfg.window), dt)
+        if cfg.block_type == "attn_mlp":
+            p["norm2"] = _norm_init(ks[2], cfg)
+            if cfg.d_ff:
+                p["mlp"] = mlp_init(ks[3], cfg.mlp_cfg(), dt)
+    if cfg.block_type in _SSD:
+        p["ssm"] = ssd_init(ks[4], cfg.ssd_cfg(), dt)
+        if cfg.block_type == "hymba":
+            # per-branch output norms for head fusion (Hymba §3.2)
+            p["attn_out_norm"] = rmsnorm_init(ks[5], cfg.d_model, dt)
+            p["ssm_out_norm"] = rmsnorm_init(ks[6], cfg.d_model, dt)
+            p["norm2"] = _norm_init(ks[2], cfg)
+            p["mlp"] = mlp_init(ks[3], cfg.mlp_cfg(), dt)
+    if cfg.block_type == "ssm_only" and cfg.d_ff:
+        p["norm2"] = _norm_init(ks[2], cfg)
+        p["mlp"] = mlp_init(ks[3], cfg.mlp_cfg(), dt)
     return p
 
 
@@ -105,51 +120,90 @@ def _mlp_residual(p, cfg, x, *, ctx, name):
     return x
 
 
+def _mix(p, cfg, x, ya, ys):
+    """The residual after the token mixers: attention's or the SSD's
+    output, or Hymba's head fusion (each branch's own RMSNorm, then the
+    mean of the two)."""
+    if cfg.block_type == "attn_mlp":
+        return x + ya
+    if cfg.block_type == "ssm_only":
+        return x + ys
+    ya = rmsnorm_apply(p["attn_out_norm"], ya)
+    ys = rmsnorm_apply(p["ssm_out_norm"], ys)
+    return x + 0.5 * (ya + ys)
+
+
 def block_apply(p, cfg: ModelCfg, x, *, ctx=_FP, name="blk", positions=None,
                 window=None, impl=None):
     """Full-sequence block forward. Returns (x, aux)."""
-    _dense_only(cfg)
+    _supported(cfg)
     impl = impl or cfg.attn_impl
     h = _norm_apply(p["norm1"], cfg, x)
-    x = x + attention_apply(p["attn"], cfg.attn_cfg(window=None), h,
-                            ctx=ctx, name=f"{name}/attn",
-                            positions=positions, impl=impl, window=window)
+    ya = ys = None
+    if cfg.block_type in _ATTN:
+        ya = attention_apply(p["attn"], cfg.attn_cfg(window=None), h,
+                             ctx=ctx, name=f"{name}/attn",
+                             positions=positions, impl=impl, window=window)
+    if cfg.block_type in _SSD:
+        ys = ssd_apply(p["ssm"], cfg.ssd_cfg(), h, ctx=ctx,
+                       name=f"{name}/ssm")
+    x = _mix(p, cfg, x, ya, ys)
     return _mlp_residual(p, cfg, x, ctx=ctx, name=name), dict(_ZERO_AUX)
 
 
 def block_cache_init(cfg: ModelCfg, batch, max_len, dtype=None, device=None):
-    """Decode cache for ONE layer: a full ``max_len`` buffer whatever the
-    window (windowed layers mask within it)."""
-    _dense_only(cfg)
-    return {"kv": kv_cache_init(cfg.attn_cfg(window=None), batch, max_len,
-                                dtype or cfg.tdtype, device)}
+    """Decode cache for ONE layer: a full ``max_len`` kv buffer whatever
+    the window (windowed layers mask within it), and the SSD state."""
+    _supported(cfg)
+    dtype = dtype or cfg.tdtype
+    c: Dict[str, Any] = {}
+    if cfg.block_type in _ATTN:
+        c["kv"] = kv_cache_init(cfg.attn_cfg(window=None), batch, max_len,
+                                dtype, device)
+    if cfg.block_type in _SSD:
+        c["ssm"] = ssd_state_init(cfg.ssd_cfg(), batch, dtype, device)
+    return c
 
 
 def block_prefill(p, cfg: ModelCfg, x, *, ctx=_FP, name="blk", positions=None,
                   window=None, max_len=None, impl=None):
     """Forward + cache build. Returns (x, cache)."""
-    _dense_only(cfg)
+    _supported(cfg)
     impl = impl or cfg.attn_impl
+    cache: Dict[str, Any] = {}
     h = _norm_apply(p["norm1"], cfg, x)
-    ya, kv = attention_prefill(p["attn"], cfg.attn_cfg(window=None), h,
-                               ctx=ctx, name=f"{name}/attn",
-                               positions=positions, impl=impl,
-                               max_len=max_len, window=window,
-                               full_cache=True)
-    return _mlp_residual(p, cfg, x + ya, ctx=ctx, name=name), {"kv": kv}
+    ya = ys = None
+    if cfg.block_type in _ATTN:
+        ya, cache["kv"] = attention_prefill(
+            p["attn"], cfg.attn_cfg(window=None), h, ctx=ctx,
+            name=f"{name}/attn", positions=positions, impl=impl,
+            max_len=max_len, window=window, full_cache=True)
+    if cfg.block_type in _SSD:
+        ys, cache["ssm"] = ssd_apply(p["ssm"], cfg.ssd_cfg(), h, ctx=ctx,
+                                     name=f"{name}/ssm", return_state=True)
+    x = _mix(p, cfg, x, ya, ys)
+    return _mlp_residual(p, cfg, x, ctx=ctx, name=name), cache
 
 
 def block_decode(p, cfg: ModelCfg, x, cache, index, *, ctx=_FP, name="blk",
                  window=None):
-    """One-token decode. x (B,1,d); the cache is written in place.
-    Returns (x, cache)."""
-    _dense_only(cfg)
+    """One-token decode. x (B,1,d); the kv cache is written in place, the
+    SSD state is returned new (``lm_decode_step`` copies it into the
+    stacked cache). Returns (x, cache)."""
+    _supported(cfg)
     h = _norm_apply(p["norm1"], cfg, x)
-    ya, kv = attention_decode(
-        p["attn"], cfg.attn_cfg(window=None), h, cache["kv"], index,
-        ctx=ctx, name=f"{name}/attn",
-        **({} if window is None else {"window": window}))
-    return _mlp_residual(p, cfg, x + ya, ctx=ctx, name=name), {"kv": kv}
+    new: Dict[str, Any] = {}
+    ya = ys = None
+    if cfg.block_type in _ATTN:
+        ya, new["kv"] = attention_decode(
+            p["attn"], cfg.attn_cfg(window=None), h, cache["kv"], index,
+            ctx=ctx, name=f"{name}/attn",
+            **({} if window is None else {"window": window}))
+    if cfg.block_type in _SSD:
+        ys, new["ssm"] = ssd_decode(p["ssm"], cfg.ssd_cfg(), h, cache["ssm"],
+                                    ctx=ctx, name=f"{name}/ssm")
+    x = _mix(p, cfg, x, ya, ys)
+    return _mlp_residual(p, cfg, x, ctx=ctx, name=name), new
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +220,7 @@ def lm_init(key, cfg: ModelCfg, device=None):
 
     Params: {'embed', 'blocks' (stacked L), 'final_norm', ['head'],
     ['pos']}."""
-    _dense_only(cfg)
+    _supported(cfg)
     dev = resolve_device(device)
     k_emb, k_blocks, k_norm, k_head, k_pos = rng.split(key.to(dev), 5)
     dt = cfg.tdtype
@@ -220,7 +274,7 @@ def _logits_out(p, cfg, x, ctx):
 def lm_apply(p, cfg: ModelCfg, tokens, *, ctx=_FP, positions=None):
     """Full forward to logits. tokens (B,S) integers. Returns (logits,
     aux)."""
-    _dense_only(cfg)
+    _supported(cfg)
     x = _embed_in(p, cfg, tokens)
     wins = layer_windows(cfg, tokens.shape[1])
     aux_loss = router_z = 0.0
@@ -269,7 +323,8 @@ def lm_loss_fn(p, cfg: ModelCfg, batch, *, ctx=_FP):
 # prefill / decode at model level
 # ---------------------------------------------------------------------------
 def lm_cache_init(cfg: ModelCfg, batch, max_len, dtype=None, device=None):
-    """Zero decode cache, leaves (L, B, max_len, Hk, hd)."""
+    """Zero decode cache, each of ``block_cache_init``'s leaves stacked
+    on a leading (L,) axis."""
     one = block_cache_init(cfg, batch, max_len, dtype, device)
     return map_tree(lambda a: torch.zeros((cfg.n_layers,) + tuple(a.shape),
                                           dtype=a.dtype, device=a.device),
@@ -278,8 +333,9 @@ def lm_cache_init(cfg: ModelCfg, batch, max_len, dtype=None, device=None):
 
 def lm_prefill(p, cfg: ModelCfg, tokens, *, ctx=_FP, max_len=None):
     """Returns (logits of the last position (B,1,V), cache); cache leaves
-    stacked (L, B, max_len, Hk, hd)."""
-    _dense_only(cfg)
+    stacked on a leading (L,) axis. An SSD model's S must be a multiple
+    of ``cfg.ssm_chunk``."""
+    _supported(cfg)
     B, S = tokens.shape
     max_len = max_len or S
     x = _embed_in(p, cfg, tokens)
@@ -303,9 +359,10 @@ def cache_len(cfg: ModelCfg, cache) -> int:
 
 def lm_decode_step(p, cfg: ModelCfg, token, cache, index, *, ctx=_FP):
     """One decode step. token (B,1) integers; index: python int, the
-    absolute position. Writes the cache in place. Returns (logits
+    absolute position. Writes the cache in place (the kv slot, and each
+    layer's new SSD state copied over its old one). Returns (logits
     (B,1,V), cache)."""
-    _dense_only(cfg)
+    _supported(cfg)
     x = embedding_apply(p["embed"], token).to(cfg.tdtype)
     if cfg.pos_embed == "learned":
         x = x + p["pos"][index:index + 1][None]
@@ -313,8 +370,11 @@ def lm_decode_step(p, cfg: ModelCfg, token, cache, index, *, ctx=_FP):
     for i, bp in enumerate(_layers(p, cfg)):
         c = map_tree(lambda a: a[i], cache)
         w = None if wins is None else wins[i]
-        x, _ = block_decode(bp, cfg, x, c, index, ctx=ctx.at_layer(i),
-                            name=f"blk{i}", window=w)
+        x, new = block_decode(bp, cfg, x, c, index, ctx=ctx.at_layer(i),
+                              name=f"blk{i}", window=w)
+        if "ssm" in new:
+            c["ssm"]["h"].copy_(new["ssm"]["h"])
+            c["ssm"]["conv"].copy_(new["ssm"]["conv"])
     return _logits_out(p, cfg, x, ctx), cache
 
 

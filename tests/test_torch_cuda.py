@@ -1671,3 +1671,111 @@ def test_lm_flash_gqa_masks_match_plain_and_expanded_heads(dev, kind, dt):
     flat = ops.flash_attention(q.reshape(B, Sq, Hk * G, 1, hd), kx, vx, qk,
                                pv, mask=mask, scale=hd ** -0.5)
     assert torch.equal(out.reshape(flat.shape), flat)
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid LMs' shapes: B1 at ragged N, B3 at hd 64 with G 5 and
+# hymba's meta prefix + window mask, a hymba-smoke forward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("K,N,transposed", [(768, 3352, False),
+                                            (1600, 6482, False),
+                                            (1600, 32001, True),
+                                            (768, 50280, True)],
+                         ids=["mamba2-in_proj", "hymba-in_proj",
+                              "hymba-lm_head", "mamba2-lm_head"])
+def test_ssm_linear_ragged_n_matches_plain(dev, K, N, transposed, M, dt):
+    """B1 where N is not a multiple of 8 (Mamba-2's and Hymba's in_proj)
+    or is odd (the tied lm_heads, their weight a transposed view): the
+    GEMM's scalar store paths, one launch, bit for bit its plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(K + N + M)
+    half = 128
+    x = torch.randn(M, K, device=dev, generator=g).to(dt)
+    shape = (N, K) if transposed else (K, N)
+    wq = torch.randint(-(half - 1), half, shape, device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = wq.T if transposed else wq
+    sx = torch.full((1, 1), 8.0 / (2 * half - 1), device=dev)
+    zx = torch.round(4.0 / sx)
+    scale = sx * (torch.rand(1, N, device=dev, generator=g) * 1e-3 + 1e-4)
+    corr = (torch.round(zx).to(torch.int32) - half) * wq.to(
+        torch.int32).sum(0, dtype=torch.int32)[None]
+    run = lambda: F8.int8_matmul_fq(x, wq, sx, zx, scale, corr, None, 0,
+                                    bits=8, out_dtype=dt)
+    before = kernels.LAUNCHES["int8_matmul_fq"]
+    out = run()
+    assert kernels.LAUNCHES["int8_matmul_fq"] == before + 1
+    assert torch.equal(out, _plain(run))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_hybrid_flash_meta_window_matches_plain(dev, kind, dt):
+    """B3 at head dim 64 with G = 5 query heads per kv head over a kv of
+    32 meta tokens + the sequence: the meta prefix visible to every query,
+    a sliding window of 100 on the causal mask (prefill, S 300), or one
+    decode row over a ragged cache: one launch, bit for bit its plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(64)
+    B, Hk, G, hd, S, n_meta, window = 2, 5, 5, 64, 300, 32, 100
+    Sq = S if kind == "prefill" else 1
+    Skv = n_meta + S
+    q = (torch.randn(B, Sq, Hk, G, hd, device=dev, generator=gen) * 1.5
+         ).to(dt)
+    k, v = ((torch.randn(B, Skv, Hk, hd, device=dev, generator=gen) * 1.5
+             ).to(dt) for _ in "kv")
+    kpos = torch.arange(S, device=dev)
+    qpos = kpos if kind == "prefill" else torch.tensor([250], device=dev)
+    live = (kpos[None, :] <= qpos[:, None]) & (
+        kpos[None, :] > qpos[:, None] - window)
+    mask = torch.cat([torch.ones(Sq, n_meta, dtype=torch.bool, device=dev),
+                      live], dim=1)[None, None, None].expand(B, 1, 1, Sq,
+                                                             Skv)
+    qk, pv = _qkv_packs(dev, 8, 1, Skv, gen)
+    run = lambda: ops.flash_attention(q, k, v, qk, pv, mask=mask,
+                                      scale=hd ** -0.5)
+    before = kernels.LAUNCHES["flash_attn_mrq"]
+    out = run()
+    assert kernels.LAUNCHES["flash_attn_mrq"] == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, _plain(run))
+
+
+def test_hymba_smoke_forward_matches_plain(dev):
+    """W8A8 ``hymba-smoke`` calibrated and served on the card: every
+    linear on B1 (the meta rows' k and v included) and every attention
+    call on B3 with the meta prefix and the window in its mask; the
+    logits equal the plain versions' bit for bit, and prefill + 2 decode
+    steps run on the kernels."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import calib
+    from repro_torch.core.baselines import tq_dit
+    from repro_torch.core.contexts import QuantContext
+    from repro_torch.core.ptq import run_ptq
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.diffusion import rng
+    from repro_torch.models import lm
+    cfg = get_smoke("hymba-1.5b")
+    p = lm.lm_init(rng.PRNGKey(0, device=dev), cfg, device=dev)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, batch=2, seed=5)
+    batches = calib.build_lm_calibration(
+        [pipe.batch_at(i, device=dev)["tokens"] for i in range(2)])
+    qp, rep = run_ptq(calib.lm_loss_fn(p, cfg), batches,
+                      tq_dit(8, 8, n_alpha=4, rounds=1), device=dev)
+    packed = ops.convert_for_kernels(
+        qp, {k: torch.as_tensor(w).to(dev) for k, w in rep["weights"].items()})
+    ctx = QuantContext(qparams=packed, kernel=True)
+    toks = pipe.batch_at(100, device=dev)["tokens"]
+    L = cfg.n_layers
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        out = lm.lm_apply(p, cfg, toks, ctx=ctx)[0]
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        ref = _plain(lambda: lm.lm_apply(p, cfg, toks, ctx=ctx)[0])
+        gen = lm.lm_generate(p, cfg, toks, 2, ctx=ctx)
+    assert launched["int8_matmul_fq"] == 11 * L + 1
+    assert launched["flash_attn_mrq"] == L
+    assert torch.isfinite(out).all() and torch.equal(out, ref)
+    assert gen.shape == (2, 2) and int(gen.max()) < cfg.vocab
